@@ -1,0 +1,352 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from the sources in this checkout, holds
+each against its plain PyTorch version at the main path's shapes (1080p,
+batches of 16 pictures), decodes the 1080p benchmark streams through
+``dryv_tpu_torch.gop_pipeline.decode_annexb_gop_pipelined`` and checks
+every frame bit-exact against the native C++ decoder and the stored
+goldens, shows from the launch counters that the decode went through
+all three kernels, and times the kernels and the end-to-end decode.
+Any failure ends the run with a non-zero exit and no result line.  The
+last line is {"ok": true, "device": {...}}; the line before it holds the
+per-kernel JSON.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+F = 16           # pictures per batch, as the benchmark runs
+MB_W, MB_H = 120, 68
+REPS = 5
+
+
+def fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps):
+    """Mean device milliseconds of fn() over reps calls (after one warm
+    call), by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def random_syntax(rng, mb_w, mb_h, F):
+    """Random legal intra syntax, as tests/test_pallas_wavefront.py makes
+    it: geometric availability, modes that read only available
+    neighbours, residuals in [-300, 300], PCM included."""
+    n = mb_w * mb_h
+    s = {
+        "kind": rng.choice([0, 1, 2, 3], size=(F, n)).astype(np.int32),
+        "i16_mode": rng.integers(0, 4, (F, n)).astype(np.int32),
+        "chroma_mode": rng.integers(0, 4, (F, n)).astype(np.int32),
+        "modes4": rng.integers(0, 9, (F, n, 16)).astype(np.int32),
+        "modes8": rng.integers(0, 9, (F, n, 4)).astype(np.int32),
+        "pcm_y": rng.integers(0, 256, (F, n, 256)).astype(np.int32),
+        "pcm_c": rng.integers(0, 256, (F, n, 2, 8, 8)).astype(np.int32),
+    }
+    x = np.arange(n) % mb_w
+    y = np.arange(n) // mb_w
+    av = {"avail_a": x > 0, "avail_b": y > 0,
+          "avail_c": (y > 0) & (x < mb_w - 1), "avail_d": (y > 0) & (x > 0)}
+    for k, v in av.items():
+        s[k] = np.broadcast_to(v, (F, n)).copy()
+    a, b = s["avail_a"], s["avail_b"]
+    for m in (s["modes4"], s["modes8"]):
+        m[~b] = np.where(np.isin(m[~b], [0, 3, 7]), 2, m[~b])
+        m[~a] = np.where(np.isin(m[~a], [1, 8]), 2, m[~a])
+        m[~(a & b)] = np.where(np.isin(m[~(a & b)], [4, 5, 6]), 2,
+                               m[~(a & b)])
+    s["i16_mode"] = np.where(a & b, s["i16_mode"], 2).astype(np.int32)
+    s["chroma_mode"] = np.where(a & b, s["chroma_mode"], 0).astype(np.int32)
+    y_z = rng.integers(-300, 300, (F, n, 256)).astype(np.int32)
+    c = rng.integers(-300, 300, (F, n, 2, 8, 8)).astype(np.int32)
+    return s, y_z, c
+
+
+def encoder_stream(mb_w, mb_h, n_pics, qp=30):
+    """Pictures from the repo's own intra encoder (no oracle needed):
+    every MB kind including PCM, 8x8 transform, two MB rows per slice,
+    deblocking on, chroma QP offset 2."""
+    from dryv_tpu.encoder import default_sps_pps, encode_frame_annexb
+    from dryv_tpu.encoder.intra_encoder import IntraEncoder
+
+    kinds = ["i8", "i4", "i16", "pcm"]
+    out = b""
+    for t in range(n_pics):
+        rng = np.random.RandomState(t)
+        W, H = 16 * mb_w, 16 * mb_h
+        y = np.clip(rng.randint(0, 256, (H, W)) * 0.3
+                    + np.linspace(0, 200, W)[None]
+                    + np.linspace(0, 40, H)[:, None], 0, 255)
+        cb = np.clip(rng.randint(0, 256, (H // 2, W // 2)) * 0.25 + 100,
+                     0, 255)
+        cr = np.clip(rng.randint(0, 256, (H // 2, W // 2)) * 0.25 + 80,
+                     0, 255)
+        sps, pps = default_sps_pps(mb_w, mb_h, qp=qp, transform_8x8=True,
+                                   chroma_qp_offset=2)
+        enc = IntraEncoder(sps, pps, qp,
+                           mb_kind_policy=lambda a, t=t: kinds[(a + t) % 4])
+        mbs = enc.encode_frame(y.astype(np.int64), cb.astype(np.int64),
+                               cr.astype(np.int64),
+                               slice_bounds=list(range(0, mb_w * mb_h,
+                                                       2 * mb_w)))
+        out += encode_frame_annexb(sps, pps, 2, mbs, deblock_disable=0)
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+
+    from dryv_tpu.native.full import decode_annexb_native
+    from dryv_tpu_torch import _build
+    from dryv_tpu_torch.gop_pipeline import (PackedGopDecoder,
+                                             decode_annexb_gop_pipelined)
+    from dryv_tpu_torch.kernels.deblock import (deblock, deblock_plain,
+                                                deblock_precompute_intra,
+                                                pack_params)
+    from dryv_tpu_torch.kernels.densify import densify, densify_plain
+    from dryv_tpu_torch.kernels.wavefront import (intra_recon,
+                                                  intra_recon_plain,
+                                                  recon_inputs)
+    from dryv_tpu_torch.tables import decoder_tables
+    from dryv_tpu.utils.obs import StageTimers
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {name}")
+
+    # ---- phase 2: build every kernel from the checkout's sources --------
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    _build.lib()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+
+    tables = decoder_tables(dev)
+    rng = np.random.default_rng(2024)
+    kernels = {}
+
+    def record(key, route_src, replaces, err, ms, plain_ms):
+        kernels[key] = {"name": key, "route": "cuda", "source": route_src,
+                        "replaces": replaces, "launches": None,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(f"kernel {key}: max_abs_err {err} kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms  [{card}]")
+        if err != 0:
+            fail(f"{key} differs from its plain version (max {err})")
+
+    # ---- phase 3: each kernel against its plain version, 1080p x 16 ----
+    npad = 8192
+    for W in (32, 96):
+        counts = rng.integers(0, 409, (F, npad, 1))
+        counts[:, :4, 0] = [0, W, W + 1, 408]
+        bits = rng.random((F, npad, 408)) * 408 < counts
+        bmp = torch.from_numpy(np.packbits(bits, axis=-1,
+                                           bitorder="little")).to(dev)
+        vals = torch.from_numpy(rng.integers(-127, 128, (F, npad, W))
+                                .astype(np.int8)).to(dev)
+        out_k = densify(bmp, vals)
+        out_p = densify_plain(bmp, vals)
+        err = int((out_k.int() - out_p.int()).abs().max())
+        if W == 96:
+            record("densify", "dryv_tpu_torch/csrc/densify.cu",
+                   "dryv_tpu/kernels/densify.py:38", err,
+                   cuda_ms(lambda: densify(bmp, vals), 20),
+                   cuda_ms(lambda: densify_plain(bmp, vals), 5))
+        elif err:
+            fail(f"densify W={W} differs (max {err})")
+        print(f"densify bmp [{F}, {npad}, 51] vals [{F}, {npad}, {W}]: "
+              f"bit-exact")
+
+    s_np, yz_np, c_np = random_syntax(rng, MB_W, MB_H, F)
+    s = {k: torch.from_numpy(v).to(dev) for k, v in s_np.items()}
+    meta, yres, cres = recon_inputs(s, torch.from_numpy(yz_np).to(dev),
+                                    torch.from_numpy(c_np).to(dev))
+    rk = intra_recon(meta, yres, cres, tables, MB_W, MB_H)
+    rp = intra_recon_plain(meta, yres, cres, tables, MB_W, MB_H)
+    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(rk, rp))
+    record("intra_wavefront", "dryv_tpu_torch/csrc/intra_wavefront.cu",
+           "dryv_tpu/kernels/pallas_wavefront.py:140", err,
+           cuda_ms(lambda: intra_recon(meta, yres, cres, tables, MB_W, MB_H),
+                   10),
+           cuda_ms(lambda: intra_recon_plain(meta, yres, cres, tables, MB_W,
+                                             MB_H), 2))
+
+    n = MB_W * MB_H
+    qp = torch.from_numpy(rng.integers(10, 52, (F, n))).to(dev)
+    zeros = torch.zeros((F, n), dtype=torch.int32, device=dev)
+    offs = torch.from_numpy(2 * rng.integers(-3, 4, (F, 1))
+                            .repeat(n, 1)).to(dev)
+    pre = deblock_precompute_intra(s["kind"], qp, zeros, zeros, offs, -offs,
+                                   MB_W, MB_H, 1, -2, tables)
+    prm = pack_params(pre)
+    planes = [p.clone() for p in rk]
+    dk = deblock(prm, *[p.clone() for p in planes], MB_W, MB_H)
+    dp = deblock_plain(prm, *planes, MB_W, MB_H)
+    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(dk, dp))
+    changed = int((dk[0] != planes[0]).sum())
+    print(f"deblock changed {changed} luma samples")
+    if changed == 0:
+        fail("deblock check filtered nothing")
+
+    def deblock_fresh(reps):
+        tot = 0.0
+        for i in range(reps + 1):
+            ps = [p.clone() for p in planes]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            deblock(prm, *ps, MB_W, MB_H)
+            b.record()
+            torch.cuda.synchronize()
+            tot += a.elapsed_time(b) if i else 0.0
+        return tot / reps
+
+    record("deblock", "dryv_tpu_torch/csrc/deblock.cu",
+           "dryv_tpu/kernels/pallas_deblock.py:93", err, deblock_fresh(10),
+           cuda_ms(lambda: deblock_plain(prm, *planes, MB_W, MB_H), 2))
+
+    # ---- phases 4-6: the main path, bit-exact, counted ----------------
+    nthreads = os.cpu_count() or 1
+    gop_stream = open("benchdata/bench1080p_gop16.264", "rb").read()
+    checks = [("bench1080p_gop16.264", gop_stream, "native C++")]
+    for stem in ("bench1080p_qp20", "bench1080p_qp40"):
+        checks.append((f"{stem}.264",
+                       open(f"benchdata/{stem}.264", "rb").read(),
+                       "native C++"))
+    for stem in ("bench1080p", "bench1080p_dblk"):
+        checks.append((f"{stem}.264",
+                       open(f"benchdata/{stem}.264", "rb").read(),
+                       f"{stem}_golden.npz"))
+    checks.append(("encoder pictures (PCM/I4/I8/I16, 2-row slices, "
+                   "deblocked)", encoder_stream(8, 6, 5), "native C++"))
+    refs = []
+    for label, stream, against in checks:
+        if against == "native C++":
+            refs.append([(r.y, r.cb, r.cr) for r in
+                         decode_annexb_native(stream, n_threads=nthreads)])
+        else:
+            g = np.load(f"benchdata/{against}")
+            refs.append([(g["y"], g["cb"], g["cr"])])
+    counters = (densify, intra_recon, deblock)
+    for c in counters:
+        c.launches = 0
+    decode_annexb_gop_pipelined.fallback_calls = 0
+    for (label, stream, against), ref in zip(checks, refs):
+        got = decode_annexb_gop_pipelined(stream, gop=F, n_threads=nthreads,
+                                          device=dev)
+        if len(got) != len(ref):
+            fail(f"{label}: port decoded {len(got)} of {len(ref)} frames")
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if not all(np.array_equal(a, b)
+                       for a, b in zip((g.y, g.cb, g.cr), r)):
+                fail(f"{label} frame {i} differs from {against}")
+        print(f"{label}: {len(got)}/{len(ref)} frames bit-exact vs "
+              f"{against}")
+    launches = {"densify": densify.launches,
+                "intra_wavefront": intra_recon.launches,
+                "deblock": deblock.launches}
+    print(f"launches on the main path: {launches}, fallback_calls "
+          f"{decode_annexb_gop_pipelined.fallback_calls}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} never launched on the main path")
+        kernels[k]["launches"] = v
+    if decode_annexb_gop_pipelined.fallback_calls != 0:
+        fail("the main path fell back to the native decoder")
+
+    # ---- phase 7: end-to-end timing --------------------------------------
+    B = 8
+    big = gop_stream * B
+    warm = decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
+                                       device=dev, stacked_out=True)
+    torch.cuda.synchronize()
+    ref_y = torch.from_numpy(np.stack([r[0] for r in refs[0]])).to(dev)
+    for y, _cb, _cr, nf in warm:
+        if not torch.equal(y[:nf, :1080], ref_y[:nf]):
+            fail("timed-stream batch differs from the native decode")
+    fps, ratios, stage_ms = [], [], {}
+    for _ in range(REPS):
+        tm = StageTimers()
+        t0 = time.perf_counter()
+        decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
+                                    device=dev, stacked_out=True, timers=tm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fps.append(B * 16 / wall)
+        ratios.append(sum(tm.t.values()) / wall)
+        stage_ms = {k: round(v / (B * 16) * 1e3, 3) for k, v in tm.t.items()}
+    med = statistics.median(fps)
+    print(f"e2e bench1080p_gop16 x{B} (stacked device output, "
+          f"n_threads={nthreads}): median {med:.2f} fps, min {min(fps):.2f}"
+          f", max {max(fps):.2f} over {REPS} runs  [{card}]")
+    print(f"e2e stage ms/frame (last run): {json.dumps(stage_ms)}; "
+          f"stage sum / wall: median {statistics.median(ratios):.3f}")
+    tm = StageTimers()
+    t0 = time.perf_counter()
+    host = decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
+                                       device=dev, timers=tm)
+    wall = time.perf_counter() - t0
+    print(f"e2e host-frame output: {len(host) / wall:.2f} fps, stage sum "
+          f"/ wall {sum(tm.t.values()) / wall:.3f}  [{card}]")
+
+    # device span of each batch's PackedGopDecoder.forward, by CUDA events
+    # recorded around it (nothing synchronises inside the run)
+    spans = []
+    forward = PackedGopDecoder.forward
+
+    def timed_forward(self, *args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = forward(self, *args)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+
+    PackedGopDecoder.forward = timed_forward
+    t0 = time.perf_counter()
+    decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads, device=dev,
+                                stacked_out=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    PackedGopDecoder.forward = forward
+    busy = sum(a.elapsed_time(b) for a, b in spans)
+    print(f"device span of the batch stage: {busy / len(spans):.3f} ms per "
+          f"batch of {F}, {busy / 1e3 / wall:.4f} of the {wall:.3f} s wall "
+          f"[{card}]")
+
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,126 @@
+"""Build and bind the hand-written CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into
+one shared library with a plain C interface under ``build/`` (listed in
+``.gitignore``), named by a hash of the sources and flags so an edit
+rebuilds it.  The library is loaded with ``ctypes``: every pointer and
+the stream are ``c_void_p``, every size a ``c_int``.  Each C entry
+returns ``cudaGetLastError()`` after its launches, and ``call`` raises
+when that is not 0.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parent
+CSRC = HERE / "csrc"
+BUILD = HERE / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# C entry point -> argument kinds: "p" device pointer, "i" int.  The
+# stream is appended to every call.
+ENTRIES = {
+    "dt_densify": "pppii",
+    "dt_intra_wavefront": "ppppppppppiii",
+    "dt_deblock": "ppppiii",
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into build/ unless an up-to-date library is
+    there; returns its path.  verbose=True adds -Xptxas -v and prints
+    the compiler's report (registers, shared memory, spills)."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    deps = srcs + sorted(CSRC.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in deps:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    lib_path = BUILD / f"libdryv_kernels_{h.hexdigest()[:16]}.so"
+    if lib_path.exists() and not verbose:
+        return lib_path
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *map(str, srcs)]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+                               f"{r.stdout}\n{r.stderr}")
+        if verbose:
+            print(r.stdout + r.stderr)
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+def lib():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, kinds in ENTRIES.items():
+            fn = getattr(handle, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
+                           for k in kinds] + [ctypes.c_void_p]
+        handle.dt_error_string.restype = ctypes.c_char_p
+        handle.dt_error_string.argtypes = [ctypes.c_int]
+        _lib = handle
+    return _lib
+
+
+def check_cuda(*tensors):
+    """Every tensor on one CUDA device and contiguous, or raise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"kernel inputs must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def call(name: str, *args):
+    """Launch C entry `name` on the current stream; raise on any CUDA
+    error it reports."""
+    h = lib()
+    kinds = ENTRIES[name]
+    if len(args) != len(kinds):
+        raise TypeError(f"{name} takes {len(kinds)} arguments")
+    cargs = [ctypes.c_void_p(a.data_ptr()) if k == "p" else int(a)
+             for k, a in zip(kinds, args)]
+    dev = next(a.device for k, a in zip(kinds, args) if k == "p")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(h, name)(*cargs, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: "
+                           f"{h.dt_error_string(rc).decode()}")

@@ -1,0 +1,300 @@
+"""In-loop deblocking (spec 8.7) of all-intra pictures: the edge
+parameters, and kernel B3.
+
+``deblock_precompute_intra`` is the plain PyTorch port of
+``deblock_precompute_intra_jax`` (``dryv_tpu/kernels/deblock.py``):
+boundary strength, alpha, beta and tC0 per edge depend only on syntax.
+``pack_params`` lays them out as one uint8 row of 192 bytes per MB in
+``PRE_KEYS`` order.
+
+Kernel B3 (``csrc/deblock.cu``) replaces the Pallas kernel
+``_build_db_kernel`` behind ``make_deblock_pallas``
+(``dryv_tpu/kernels/pallas_deblock.py``).  It filters the finished recon
+planes in place, one launch per anti-diagonal d = x + 2y: filtering MB
+(x, y) changes its own samples, the left MB's columns 13..15 and the
+above MB's rows 13..15, and reads the above MB's corner columns that
+(x+1, y-1) filtered one diagonal earlier.  Two MBs of one diagonal never
+touch the same sample, so the diagonal order gives the spec's MB-raster
+result.  Intra prediction reads unfiltered samples, so B3 runs only
+after all of B2.
+"""
+from __future__ import annotations
+
+import torch
+
+from dryv_tpu.coeffs import KIND_I8, KIND_PCM
+
+from .. import _build
+from ..tables import chroma_qp
+from .geometry import PRE_KEYS, diag_schedule
+
+PRM_BYTES = 192
+
+
+def deblock_precompute_intra(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h,
+                             chroma_off0, chroma_off1, tables):
+    """All-intra edge parameters for a batch: kind/qp_y/sid/dis/offa/offb
+    are [F, n] integer tensors (the MB's slice's deblock control already
+    gathered per MB).  Returns the PRE_KEYS dict of int32 [F, n, ...]
+    tensors, laid out as ``deblock_precompute`` documents."""
+    F = kind.shape[0]
+    alpha_t, beta_t, tc0_t = tables["alpha"], tables["beta"], tables["tc0"]
+
+    def grid(a):
+        return a.to(torch.int32).reshape(F, mb_h, mb_w)
+
+    kind = grid(kind)
+    qpy = torch.where(kind == KIND_PCM, 0, grid(qp_y))
+    sid, dis, offa, offb = grid(sid), grid(dis), grid(offa), grid(offb)
+    t8 = kind == KIND_I8
+    qpc = [chroma_qp(qpy, chroma_off0, tables["qpc_tab"]),
+           chroma_qp(qpy, chroma_off1, tables["qpc_tab"])]
+
+    def left(a, fill=0):
+        return torch.nn.functional.pad(a[:, :, :-1], (1, 0), value=fill)
+
+    def up(a, fill=0):
+        return torch.nn.functional.pad(a[:, :-1, :], (0, 0, 1, 0),
+                                       value=fill)
+
+    # all-intra: bS is 4 on MB edges and 3 inside
+    on_self = dis != 1
+    mx = torch.arange(mb_w, device=kind.device)[None, None, :]
+    my = torch.arange(mb_h, device=kind.device)[None, :, None]
+    on_v0 = on_self & (mx > 0) & ~((dis == 2) & (left(sid, -1) != sid))
+    on_h0 = on_self & (my > 0) & ~((dis == 2) & (up(sid, -1) != sid))
+
+    def idx_ab(qpav, off):
+        return (qpav + off).clamp(0, 51).long()
+
+    def tc0_of(ia, bs):
+        return tc0_t[ia, (bs.clamp(1, 3) - 1).long()]
+
+    def luma_dir(on_e0, qp_nb):
+        qpav = (qp_nb + qpy + 1) >> 1
+        ia0, ib0 = idx_ab(qpav, offa), idx_ab(qpav, offb)
+        ia_i, ib_i = idx_ab(qpy, offa), idx_ab(qpy, offb)
+        on0 = on_e0.to(torch.int32)
+        oni = on_self.to(torch.int32)
+        not8 = (~t8).to(torch.int32)
+        # edges: 0 = MB boundary, 1..3 internal (8x8 keeps only edge 2)
+        bs_e = torch.stack([4 * on0, 3 * oni * not8, 3 * oni,
+                            3 * oni * not8], -1)             # [F,h,w,4]
+        bs = bs_e[..., None].expand(*bs_e.shape, 4)
+        al = torch.stack([alpha_t[ia0]] + [alpha_t[ia_i]] * 3, -1)
+        be = torch.stack([beta_t[ib0]] + [beta_t[ib_i]] * 3, -1)
+        ia = torch.stack([ia0] + [ia_i] * 3, -1)
+        return bs, tc0_of(ia[..., None], bs), al, be
+
+    def chroma_dir(on_e0, qpc_nb):
+        on0 = on_e0.to(torch.int32)
+        oni = on_self.to(torch.int32)
+        bs = torch.stack([(4 * on0)[..., None].expand(*on0.shape, 8),
+                          (3 * oni)[..., None].expand(*oni.shape, 8)],
+                         -2)                                 # [F,h,w,2,8]
+        al, be, tc = [], [], []
+        for p in (0, 1):
+            qpav = (qpc_nb[p] + qpc[p] + 1) >> 1
+            ia0, ib0 = idx_ab(qpav, offa), idx_ab(qpav, offb)
+            ia_i, ib_i = idx_ab(qpc[p], offa), idx_ab(qpc[p], offb)
+            al.append(torch.stack([alpha_t[ia0], alpha_t[ia_i]], -1))
+            be.append(torch.stack([beta_t[ib0], beta_t[ib_i]], -1))
+            ia = torch.stack([ia0, ia_i], -1)                # [F,h,w,2]
+            tc.append(tc0_of(ia[..., None], bs))
+        return (bs, torch.stack(tc, -2), torch.stack(al, -1),
+                torch.stack(be, -1))
+
+    out = {}
+    out["bsv"], out["tc0v"], out["av"], out["bv"] = luma_dir(on_v0,
+                                                             left(qpy))
+    out["bsh"], out["tc0h"], out["ah"], out["bh"] = luma_dir(on_h0, up(qpy))
+    out["bscv"], out["tc0cv"], out["acv"], out["bcv"] = chroma_dir(
+        on_v0, [left(q) for q in qpc])
+    out["bsch"], out["tc0ch"], out["ach"], out["bch"] = chroma_dir(
+        on_h0, [up(q) for q in qpc])
+    n = mb_w * mb_h
+    return {k: v.reshape((F, n) + tuple(v.shape[3:])).to(torch.int32)
+            for k, v in out.items()}
+
+
+def pack_params(pre):
+    """PRE_KEYS dict of [F, n, ...] -> uint8 [F, n, 192] parameter rows
+    (every value fits a byte: bS <= 4, tC0 <= 25, alpha <= 255, beta
+    <= 18)."""
+    F, n = pre["bsv"].shape[:2]
+    prm = torch.cat([pre[k].reshape(F, n, -1) for k in PRE_KEYS], -1)
+    assert prm.shape[-1] == PRM_BYTES
+    return prm.to(torch.uint8).contiguous()
+
+
+def _filt_luma(p3, p2, p1, p0, q0, q1, q2, q3, bs, alpha, beta, tc0):
+    """8.7.2.3/8.7.2.4 on sample taps; returns (p2, p1, p0, q0, q1, q2)."""
+    filt = ((bs > 0) & ((p0 - q0).abs() < alpha)
+            & ((p1 - p0).abs() < beta) & ((q1 - q0).abs() < beta))
+    ap = (p2 - p0).abs() < beta
+    aq = (q2 - q0).abs() < beta
+    tc = tc0 + ap.to(torch.int32) + aq.to(torch.int32)
+    delta = torch.maximum(torch.minimum(
+        ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3, tc), -tc)
+    p0w = (p0 + delta).clamp(0, 255)
+    q0w = (q0 - delta).clamp(0, 255)
+    avg = (p0 + q0 + 1) >> 1
+    p1w = p1 + torch.maximum(torch.minimum((p2 + avg - 2 * p1) >> 1, tc0),
+                             -tc0)
+    q1w = q1 + torch.maximum(torch.minimum((q2 + avg - 2 * q1) >> 1, tc0),
+                             -tc0)
+    strong = (p0 - q0).abs() < (alpha >> 2) + 2
+    sp = ap & strong
+    sq = aq & strong
+    p0s = torch.where(sp, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3,
+                      (2 * p1 + p0 + q1 + 2) >> 2)
+    p1s = torch.where(sp, (p2 + p1 + p0 + q0 + 2) >> 2, p1)
+    p2s = torch.where(sp, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2)
+    q0s = torch.where(sq, (q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3,
+                      (2 * q1 + q0 + p1 + 2) >> 2)
+    q1s = torch.where(sq, (q2 + q1 + q0 + p0 + 2) >> 2, q1)
+    q2s = torch.where(sq, (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3, q2)
+    b4 = bs == 4
+    return (torch.where(filt & b4, p2s, p2),
+            torch.where(filt, torch.where(b4, p1s, torch.where(ap, p1w, p1)),
+                        p1),
+            torch.where(filt, torch.where(b4, p0s, p0w), p0),
+            torch.where(filt, torch.where(b4, q0s, q0w), q0),
+            torch.where(filt, torch.where(b4, q1s, torch.where(aq, q1w, q1)),
+                        q1),
+            torch.where(filt & b4, q2s, q2))
+
+
+def _filt_chroma(p1, p0, q0, q1, bs, alpha, beta, tc0):
+    """Chroma edge filter; returns (p0, q0)."""
+    filt = ((bs > 0) & ((p0 - q0).abs() < alpha)
+            & ((p1 - p0).abs() < beta) & ((q1 - q0).abs() < beta))
+    tc = tc0 + 1
+    delta = torch.maximum(torch.minimum(
+        ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3, tc), -tc)
+    b4 = bs == 4
+    p0n = torch.where(b4, (2 * p1 + p0 + q1 + 2) >> 2,
+                      (p0 + delta).clamp(0, 255))
+    q0n = torch.where(b4, (2 * q1 + q0 + p1 + 2) >> 2,
+                      (q0 - delta).clamp(0, 255))
+    return torch.where(filt, p0n, p0), torch.where(filt, q0n, q0)
+
+
+def _edges(win, n_edges, first, step, filt, params):
+    """Filter `n_edges` edges across the last axis of `win`, in order;
+    params(e) gives edge e's filter parameters."""
+    ntap = 4 if filt is _filt_luma else 2
+    for e in range(n_edges):
+        c = first + step * e
+        taps = [win[..., c + k] for k in range(-ntap, ntap)]
+        new = filt(*taps, *params(e))
+        lo = -3 if ntap == 4 else -1
+        for k, v in zip(range(lo, -lo), new):
+            win[..., c + k] = v
+
+
+def deblock_plain(prm, y, cb, cr, mb_w, mb_h):
+    """Plain PyTorch version of B3; returns filtered copies of the
+    planes.  prm u8 [F, n, 192] from ``pack_params``."""
+    F = y.shape[0]
+    dev = y.device
+    H, Wd = 16 * mb_h, 16 * mb_w
+    # pad 4 rows/cols on top/left so every window is in bounds; edges
+    # there have bS 0 and leave the pad as it is
+    Y = torch.zeros((F, H + 4, Wd + 4), dtype=torch.int32, device=dev)
+    Y[:, 4:, 4:] = y
+    C = torch.zeros((F, 2, H // 2 + 2, Wd // 2 + 2), dtype=torch.int32,
+                    device=dev)
+    C[:, 0, 2:, 2:] = cb
+    C[:, 1, 2:, 2:] = cr
+    sched = diag_schedule(mb_w, mb_h)[0]
+    i20 = torch.arange(20, device=dev)
+    i10 = torch.arange(10, device=dev)
+    for row in sched:
+        addrs = torch.as_tensor(row[row >= 0], dtype=torch.long, device=dev)
+        K = addrs.numel()
+        f = torch.arange(F, device=dev).repeat_interleave(K)
+        a = addrs.repeat(F)
+        M = F * K
+        P = prm[f, a].to(torch.int32)
+        bsv, tc0v = P[:, 0:16].view(M, 4, 4), P[:, 16:32].view(M, 4, 4)
+        av, bv = P[:, 32:36], P[:, 36:40]
+        bsh, tc0h = P[:, 40:56].view(M, 4, 4), P[:, 56:72].view(M, 4, 4)
+        ah, bh = P[:, 72:76], P[:, 76:80]
+        bscv, tc0cv = P[:, 80:96].view(M, 2, 8), P[:, 96:128].view(M, 2, 2, 8)
+        acv, bcv = P[:, 128:132].view(M, 2, 2), P[:, 132:136].view(M, 2, 2)
+        bsch, tc0ch = P[:, 136:152].view(M, 2, 8), \
+            P[:, 152:184].view(M, 2, 2, 8)
+        ach, bch = P[:, 184:188].view(M, 2, 2), P[:, 188:192].view(M, 2, 2)
+
+        # luma window: rows y0-4..y0+15, cols x0-4..x0+15 (padded coords)
+        y0 = 16 * (a // mb_w)
+        x0 = 16 * (a % mb_w)
+        ri = (y0[:, None, None] + i20[:, None]).expand(M, 20, 20)
+        ci = (x0[:, None, None] + i20).expand(M, 20, 20)
+        fi = f[:, None, None].expand(M, 20, 20)
+        win = Y[fi, ri, ci]
+        v = win[:, 4:20, :]        # own rows, cols -4..15: vertical edges
+        _edges(v, 4, 4, 4, _filt_luma, lambda e: (
+            bsv[:, e].repeat_interleave(4, -1), av[:, e:e + 1],
+            bv[:, e:e + 1], tc0v[:, e].repeat_interleave(4, -1)))
+        win[:, 4:20, :] = v
+        h = win[:, :, 4:20].transpose(1, 2).clone()   # [M, col, row]
+        _edges(h, 4, 4, 4, _filt_luma, lambda e: (
+            bsh[:, e].repeat_interleave(4, -1), ah[:, e:e + 1],
+            bh[:, e:e + 1], tc0h[:, e].repeat_interleave(4, -1)))
+        win[:, :, 4:20] = h.transpose(1, 2)
+        # write back own MB, left strip and above strip (not the corner)
+        keep = torch.ones((20, 20), dtype=torch.bool, device=dev)
+        keep[:4, :4] = False
+        Y[fi[:, keep], ri[:, keep], ci[:, keep]] = win[:, keep]
+
+        # chroma: both planes, window rows/cols -2..7
+        cy0 = 8 * (a // mb_w)
+        cx0 = 8 * (a % mb_w)
+        cri = (cy0[:, None, None, None] + i10[:, None]).expand(M, 2, 10, 10)
+        cci = (cx0[:, None, None, None] + i10).expand(M, 2, 10, 10)
+        cfi = f[:, None, None, None].expand(M, 2, 10, 10)
+        cpi = torch.arange(2, device=dev)[None, :, None, None].expand(
+            M, 2, 10, 10)
+        cwin = C[cfi, cpi, cri, cci]
+        cv = cwin[:, :, 2:10, :]
+        _edges(cv, 2, 2, 4, _filt_chroma, lambda e: (
+            bscv[:, None, e], acv[:, e, :, None], bcv[:, e, :, None],
+            tc0cv[:, e]))
+        cwin[:, :, 2:10, :] = cv
+        chh = cwin[:, :, :, 2:10].transpose(2, 3).clone()
+        _edges(chh, 2, 2, 4, _filt_chroma, lambda e: (
+            bsch[:, None, e], ach[:, e, :, None], bch[:, e, :, None],
+            tc0ch[:, e]))
+        cwin[:, :, :, 2:10] = chh.transpose(2, 3)
+        ckeep = torch.ones((10, 10), dtype=torch.bool, device=dev)
+        ckeep[:2, :2] = False
+        C[cfi[:, :, ckeep], cpi[:, :, ckeep], cri[:, :, ckeep],
+          cci[:, :, ckeep]] = cwin[:, :, ckeep]
+    return (Y[:, 4:, 4:].to(torch.uint8), C[:, 0, 2:, 2:].to(torch.uint8),
+            C[:, 1, 2:, 2:].to(torch.uint8))
+
+
+def deblock(prm, y, cb, cr, mb_w, mb_h):
+    """B3: filter the planes.  CUDA tensors are filtered in place by the
+    kernel (one launch per anti-diagonal, issued by one C call) and
+    returned; CPU tensors take the plain version, which returns new
+    planes."""
+    F, n, nb = prm.shape
+    if n != mb_w * mb_h or nb != PRM_BYTES or prm.dtype != torch.uint8:
+        raise ValueError(f"prm must be uint8 [F,{mb_w * mb_h},"
+                         f"{PRM_BYTES}], got {prm.dtype} "
+                         f"{tuple(prm.shape)}")
+    if y.shape != (F, 16 * mb_h, 16 * mb_w) or \
+            cb.shape != (F, 8 * mb_h, 8 * mb_w) or cr.shape != cb.shape:
+        raise ValueError("plane shapes do not match the MB geometry")
+    if y.device.type == "cpu":
+        return deblock_plain(prm, y, cb, cr, mb_w, mb_h)
+    _build.check_cuda(prm, y, cb, cr)
+    _build.call("dt_deblock", prm, y, cb, cr, mb_w, mb_h, F)
+    deblock.launches += 1
+    return y, cb, cr
+
+
+deblock.launches = 0
