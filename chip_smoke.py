@@ -2,15 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version at the main path's shapes (1080p,
-batches of 16 pictures), decodes the 1080p benchmark streams through
-``dryv_tpu_torch.gop_pipeline.decode_annexb_gop_pipelined`` and checks
-every frame bit-exact against the native C++ decoder and the stored
-goldens, shows from the launch counters that the decode went through
-all three kernels, and times the kernels and the end-to-end decode.
-Any failure ends the run with a non-zero exit and no result line.  The
-last line is {"ok": true, "device": {...}}; the line before it holds the
+Builds the port's CUDA kernels from the sources in this checkout and
+holds each against its plain PyTorch version at the shapes its path
+gives it (1080p batches of 16 pictures; one band of 120x17 MBs x 4 for
+the banded wavefront).  Then it drives each path of the port with the
+launch counters set to 0 just before and read just after, and checks
+every frame bit-exact against the native C++ decoder or a stored golden:
+
+- the batched all-intra decode,
+  ``gop_pipeline.decode_annexb_gop_pipelined`` (densify, intra
+  wavefront, deblock);
+- the per-picture path, ``pipeline.decode_annexb_fast`` (intra
+  wavefront and deblock at F = 1), on the 1080p goldens and on
+  encoder-made CAVLC and scaling-matrix pictures, which the batched
+  pipeline must hand to it;
+- the sharded decode, ``parallel`` (GOP-sharded, band-pipelined,
+  band-sharded single frame, the dry run), on one card through meshes
+  that repeat it.
+
+It times the kernels, the end-to-end batched decode, the per-picture
+decode and the banded pipeline beside the unbanded wavefront.  Any
+failure ends the run with a non-zero exit and no result line.  The last
+line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON.
 """
 from __future__ import annotations
@@ -50,10 +63,11 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def random_syntax(rng, mb_w, mb_h, F):
+def random_syntax(rng, mb_w, mb_h, F, below_band=False):
     """Random legal intra syntax, as tests/test_pallas_wavefront.py makes
     it: geometric availability, modes that read only available
-    neighbours, residuals in [-300, 300], PCM included."""
+    neighbours, residuals in [-300, 300], PCM included.  below_band:
+    MB row 0 has neighbours above (a band below another band)."""
     n = mb_w * mb_h
     s = {
         "kind": rng.choice([0, 1, 2, 3], size=(F, n)).astype(np.int32),
@@ -65,7 +79,7 @@ def random_syntax(rng, mb_w, mb_h, F):
         "pcm_c": rng.integers(0, 256, (F, n, 2, 8, 8)).astype(np.int32),
     }
     x = np.arange(n) % mb_w
-    y = np.arange(n) // mb_w
+    y = np.arange(n) // mb_w + (1 if below_band else 0)
     av = {"avail_a": x > 0, "avail_b": y > 0,
           "avail_c": (y > 0) & (x < mb_w - 1), "avail_d": (y > 0) & (x > 0)}
     for k, v in av.items():
@@ -83,10 +97,24 @@ def random_syntax(rng, mb_w, mb_h, F):
     return s, y_z, c
 
 
-def encoder_stream(mb_w, mb_h, n_pics, qp=30):
+def scaling_lists():
+    """Custom scaling matrices, the recipe of the scal_* fixtures
+    (dryv_tpu/testing/fixtures.py)."""
+    from dryv_tpu.avc.sps import ScalingLists
+
+    rng = np.random.RandomState(7)
+    l4 = np.stack([np.sort(np.clip(10 + rng.randint(-6, 26, 16), 1, 255))
+                   for _ in range(6)]).astype(np.int32)
+    l8 = np.stack([np.sort(np.clip(10 + rng.randint(-6, 38, 64), 1, 255))
+                   for _ in range(6)]).astype(np.int32)
+    return ScalingLists(l4, l8)
+
+
+def encoder_stream(mb_w, mb_h, n_pics, qp=30, cabac=True, scaling=False):
     """Pictures from the repo's own intra encoder (no oracle needed):
     every MB kind including PCM, 8x8 transform, two MB rows per slice,
-    deblocking on, chroma QP offset 2."""
+    deblocking on, chroma QP offset 2; CAVLC with cabac=False, an SPS
+    scaling matrix with scaling=True."""
     from dryv_tpu.encoder import default_sps_pps, encode_frame_annexb
     from dryv_tpu.encoder.intra_encoder import IntraEncoder
 
@@ -103,7 +131,11 @@ def encoder_stream(mb_w, mb_h, n_pics, qp=30):
         cr = np.clip(rng.randint(0, 256, (H // 2, W // 2)) * 0.25 + 80,
                      0, 255)
         sps, pps = default_sps_pps(mb_w, mb_h, qp=qp, transform_8x8=True,
-                                   chroma_qp_offset=2)
+                                   chroma_qp_offset=2, cabac=cabac)
+        if scaling:
+            sps.profile_idc = 100
+            sps.seq_scaling_matrix_present_flag = 1
+            sps.seq_scaling_lists = scaling_lists()
         enc = IntraEncoder(sps, pps, qp,
                            mb_kind_policy=lambda a, t=t: kinds[(a + t) % 4])
         mbs = enc.encode_frame(y.astype(np.int64), cb.astype(np.int64),
@@ -123,8 +155,9 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
+    from dryv_tpu.decoder import DecodedFrame
     from dryv_tpu.native.full import decode_annexb_native
-    from dryv_tpu_torch import _build
+    from dryv_tpu_torch import _build, parallel
     from dryv_tpu_torch.gop_pipeline import (PackedGopDecoder,
                                              decode_annexb_gop_pipelined)
     from dryv_tpu_torch.kernels.deblock import (deblock, deblock_plain,
@@ -134,6 +167,10 @@ def main():
     from dryv_tpu_torch.kernels.wavefront import (intra_recon,
                                                   intra_recon_plain,
                                                   recon_inputs)
+    from dryv_tpu_torch.pipeline import (decode_annexb_fast,
+                                         frames_from_stream, recon_syntax,
+                                         tables_for)
+    from dryv_tpu_torch.syntax import stack_frames, syntax_tensors
     from dryv_tpu_torch.tables import decoder_tables
     from dryv_tpu.utils.obs import StageTimers
 
@@ -198,6 +235,33 @@ def main():
            cuda_ms(lambda: intra_recon_plain(meta, yres, cres, tables, MB_W,
                                              MB_H), 2))
 
+    # B2b: one band of 17 MB rows x 4 pictures below another band; its
+    # halo is the bottom luma row and chroma rows of the band above,
+    # taken from the 1080p golden picture
+    BR, FB = 17, 4
+    gold = np.load("benchdata/bench1080p_golden.npz")
+    hy = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        gold["y"][16 * BR - 1], (FB, 16 * MB_W)))).to(dev)
+    hc = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        np.stack([gold["cb"][8 * BR - 1], gold["cr"][8 * BR - 1]]),
+        (FB, 2, 8 * MB_W)))).to(dev)
+    sb_np, yzb_np, cb_np = random_syntax(rng, MB_W, BR, FB, below_band=True)
+    sb = {k: torch.from_numpy(v).to(dev) for k, v in sb_np.items()}
+    band_in = recon_inputs(sb, torch.from_numpy(yzb_np).to(dev),
+                        torch.from_numpy(cb_np).to(dev))
+    bk = intra_recon(*band_in, tables, MB_W, BR, halo=(hy, hc))
+    bp = intra_recon_plain(*band_in, tables, MB_W, BR, (hy, hc))
+    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(bk, bp))
+    b0 = intra_recon(*band_in, tables, MB_W, BR, halo=(hy * 0, hc * 0))
+    if all(torch.equal(a, b) for a, b in zip(bk, b0)):
+        fail("intra_wavefront_banded: the halo changed no sample")
+    record("intra_wavefront_banded", "dryv_tpu_torch/csrc/intra_wavefront.cu",
+           "dryv_tpu/kernels/pallas_wavefront.py:140", err,
+           cuda_ms(lambda: intra_recon(*band_in, tables, MB_W, BR,
+                                       halo=(hy, hc)), 10),
+           cuda_ms(lambda: intra_recon_plain(*band_in, tables, MB_W, BR,
+                                             (hy, hc)), 2))
+
     n = MB_W * MB_H
     qp = torch.from_numpy(rng.integers(10, 52, (F, n))).to(dev)
     zeros = torch.zeros((F, n), dtype=torch.int32, device=dev)
@@ -254,13 +318,22 @@ def main():
         else:
             g = np.load(f"benchdata/{against}")
             refs.append([(g["y"], g["cb"], g["cr"])])
-    counters = (densify, intra_recon, deblock)
-    for c in counters:
-        c.launches = 0
-    decode_annexb_gop_pipelined.fallback_calls = 0
-    for (label, stream, against), ref in zip(checks, refs):
-        got = decode_annexb_gop_pipelined(stream, gop=F, n_threads=nthreads,
-                                          device=dev)
+    def reset_counts():
+        densify.launches = deblock.launches = 0
+        intra_recon.launches = intra_recon.banded_launches = 0
+        decode_annexb_gop_pipelined.fallback_calls = 0
+        decode_annexb_fast.host_calls = 0
+
+    def counts():
+        return {"densify": densify.launches,
+                "intra_wavefront": intra_recon.launches,
+                "intra_wavefront_banded": intra_recon.banded_launches,
+                "deblock": deblock.launches,
+                "fallback_calls": decode_annexb_gop_pipelined.fallback_calls,
+                "host_calls": decode_annexb_fast.host_calls}
+
+    def check_frames(label, got, ref, against):
+        """got: DecodedFrames; ref: (y, cb, cr) per frame."""
         if len(got) != len(ref):
             fail(f"{label}: port decoded {len(got)} of {len(ref)} frames")
         for i, (g, r) in enumerate(zip(got, ref)):
@@ -269,17 +342,26 @@ def main():
                 fail(f"{label} frame {i} differs from {against}")
         print(f"{label}: {len(got)}/{len(ref)} frames bit-exact vs "
               f"{against}")
-    launches = {"densify": densify.launches,
-                "intra_wavefront": intra_recon.launches,
-                "deblock": deblock.launches}
-    print(f"launches on the main path: {launches}, fallback_calls "
-          f"{decode_annexb_gop_pipelined.fallback_calls}")
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} never launched on the main path")
-        kernels[k]["launches"] = v
-    if decode_annexb_gop_pipelined.fallback_calls != 0:
-        fail("the main path fell back to the native decoder")
+
+    def need(path, c, keys, report=()):
+        """Fail unless every kernel in keys launched on the path; the
+        kernels in report take their launch count from this path."""
+        print(f"launches on the {path}: {c}")
+        for k in keys:
+            if c[k] <= 0:
+                fail(f"kernel {k} never launched on the {path}")
+        for k in report:
+            kernels[k]["launches"] = c[k]
+
+    reset_counts()
+    for (label, stream, against), ref in zip(checks, refs):
+        check_frames(label, decode_annexb_gop_pipelined(
+            stream, gop=F, n_threads=nthreads, device=dev), ref, against)
+    c = counts()
+    need("main path", c, ("densify", "intra_wavefront", "deblock"),
+         report=("densify", "intra_wavefront", "deblock"))
+    if c["fallback_calls"] != 0:
+        fail("the main path left the batched scope")
 
     # ---- phase 7: end-to-end timing --------------------------------------
     B = 8
@@ -342,6 +424,128 @@ def main():
           f"batch of {F}, {busy / 1e3 / wall:.4f} of the {wall:.3f} s wall "
           f"[{card}]")
 
+    # ---- phase 8: the per-picture path (CAVLC, scaling matrices) -------
+    pp_checks = []
+    for stem in ("bench1080p", "bench1080p_dblk"):
+        g = np.load(f"benchdata/{stem}_golden.npz")
+        pp_checks.append((f"per-picture {stem}.264",
+                          open(f"benchdata/{stem}.264", "rb").read(),
+                          [(g["y"], g["cb"], g["cr"])],
+                          f"{stem}_golden.npz"))
+    cavlc = encoder_stream(8, 6, 3, cabac=False)
+    scal = encoder_stream(8, 6, 3, scaling=True)
+    for label, stream in (("CAVLC", cavlc), ("SPS scaling-matrix", scal)):
+        pp_checks.append((f"per-picture encoder {label} pictures (8x6 MBs,"
+                          f" PCM/I4/I8/I16, deblocked)", stream,
+                          [(r.y, r.cb, r.cr) for r in decode_annexb_native(
+                              stream, n_threads=nthreads)], "native C++"))
+    reset_counts()
+    for label, stream, ref, against in pp_checks:
+        check_frames(label, decode_annexb_fast(stream, n_threads=nthreads,
+                                               device=dev), ref, against)
+    c = counts()
+    need("per-picture path", c, ("intra_wavefront", "deblock"))
+    if c["host_calls"] != 0:
+        fail("the per-picture path sent a stream to the host decoder")
+
+    reset_counts()
+    check_frames("batched pipeline on the CAVLC pictures",
+                 decode_annexb_gop_pipelined(cavlc, gop=F,
+                                             n_threads=nthreads, device=dev),
+                 pp_checks[2][2], "native C++")
+    c = counts()
+    print(f"launches, CAVLC through the batched pipeline: {c}")
+    if (c["fallback_calls"] != 1 or c["host_calls"] != 0
+            or c["intra_wavefront"] <= 0 or c["deblock"] <= 0):
+        fail("the batched pipeline did not hand the CAVLC stream to the "
+             "per-picture device path")
+
+    fps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = decode_annexb_fast(gop_stream, n_threads=nthreads, device=dev)
+        fps.append(len(got) / (time.perf_counter() - t0))
+    check_frames("per-picture bench1080p_gop16.264 (timed)", got, refs[0],
+                 "native C++")
+    print(f"per-picture decode_annexb_fast bench1080p_gop16 (host frames): "
+          f"median {statistics.median(fps):.2f} fps, min {min(fps):.2f}, "
+          f"max {max(fps):.2f} over 3 runs  [{card}]")
+
+    # ---- phase 9: the sharded paths on one card -------------------------
+    frames, gsps = frames_from_stream(gop_stream, n_threads=nthreads)
+
+    def check_planes(label, planes, ref):
+        check_frames(label, [DecodedFrame(*p).crop(gsps) for p in planes],
+                     ref, "native C++")
+
+    reset_counts()
+    n_cards = torch.cuda.device_count()
+    meshes = [["cuda:0"] * 2] + ([[f"cuda:{i}" for i in range(n_cards)]]
+                                 if n_cards > 1 else [])
+    for devs in meshes:
+        planes = parallel.decode_gop_sharded(
+            frames, parallel.make_mesh({"gop": len(devs)}, devs))
+        check_planes(f"decode_gop_sharded over {devs}",
+                     list(zip(*planes)), refs[0])
+    run4 = parallel.make_banded_gop_fn(
+        parallel.make_mesh({"band": 4}, ["cuda:0"] * 4), MB_W, MB_H, 16,
+        Fi=4)
+    check_planes("make_banded_gop_fn, 4 bands of 17 MB rows, Fi=4",
+                 list(zip(*run4(frames))), refs[0])
+    run3 = parallel.make_banded_frame_fn(
+        parallel.make_mesh({"band": 3}, ["cuda:0"] * 3), MB_W, MB_H)
+    check_planes("make_banded_frame_fn, 3 bands (23/23/22 MB rows)",
+                 [run3(frames[0])], refs[0][:1])
+    parallel.dryrun_multichip(4, ["cuda:0"] * 4, stream=gop_stream,
+                              n_threads=nthreads)
+    need("sharded paths", counts(),
+         ("intra_wavefront", "intra_wavefront_banded"),
+         report=("intra_wavefront_banded",))
+
+    # device span of stage A + wavefront over the 16 pictures, syntax
+    # already on the card: banded pipeline (4 bands on one card) beside
+    # the unbanded B2
+    syn = syntax_tensors(stack_frames(frames), dev)
+    band_syn = run4.upload(frames)
+    tabs = tables_for(dev)
+
+    def unbanded():
+        return recon_syntax(syn, tabs, MB_W, MB_H)
+
+    def banded():
+        return run4.reconstruct(band_syn, device_out=True)
+
+    if not all(torch.equal(a, b) for a, b in zip(banded(), unbanded())):
+        fail("banded pipeline differs from the unbanded wavefront")
+
+    def span_ms(fn, reps=3):
+        """Mean (device span by CUDA events, host time to enqueue) ms."""
+        fn()
+        torch.cuda.synchronize()
+        tot = host = 0.0
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            fn()
+            host += time.perf_counter() - t0
+            b.record()
+            torch.cuda.synchronize()
+            tot += a.elapsed_time(b)
+        return tot / reps, host * 1e3 / reps
+
+    times = [span_ms(f) for f in (unbanded, banded, banded, unbanded)]
+    print(f"device span (host enqueue), 16 pictures of bench1080p_gop16, "
+          f"stage A + wavefront, CUDA events, mean of 3: unbanded B2 "
+          f"{times[0][0]:.3f} ({times[0][1]:.3f}) / {times[3][0]:.3f} "
+          f"({times[3][1]:.3f}) ms, banded pipeline 4 bands Fi=4 "
+          f"{times[1][0]:.3f} ({times[1][1]:.3f}) / {times[2][0]:.3f} "
+          f"({times[2][1]:.3f}) ms  [{card}]")
+
+    for k, v in kernels.items():
+        if not v["launches"]:
+            fail(f"kernel {k} launched on no driven path")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

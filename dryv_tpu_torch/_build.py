@@ -4,9 +4,10 @@ At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into
 one shared library with a plain C interface under ``build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags so an edit
 rebuilds it.  The library is loaded with ``ctypes``: every pointer and
-the stream are ``c_void_p``, every size a ``c_int``.  Each C entry
-returns ``cudaGetLastError()`` after its launches, and ``call`` raises
-when that is not 0.  Nothing here runs at import time.
+the stream are ``c_void_p`` (``None`` passes a null pointer), every size
+a ``c_int``.  Each C entry returns ``cudaGetLastError()`` after its
+launches, and ``call`` raises when that is not 0.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -26,11 +27,11 @@ BUILD = HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# C entry point -> argument kinds: "p" device pointer, "i" int.  The
-# stream is appended to every call.
+# C entry point -> argument kinds: "p" device pointer (or None), "i" int.
+# The stream is appended to every call.
 ENTRIES = {
     "dt_densify": "pppii",
-    "dt_intra_wavefront": "ppppppppppiii",
+    "dt_intra_wavefront": "ppppppppppppiii",
     "dt_deblock": "ppppiii",
 }
 
@@ -115,9 +116,11 @@ def call(name: str, *args):
     kinds = ENTRIES[name]
     if len(args) != len(kinds):
         raise TypeError(f"{name} takes {len(kinds)} arguments")
-    cargs = [ctypes.c_void_p(a.data_ptr()) if k == "p" else int(a)
+    cargs = [int(a) if k == "i" else
+             ctypes.c_void_p(None if a is None else a.data_ptr())
              for k, a in zip(kinds, args)]
-    dev = next(a.device for k, a in zip(kinds, args) if k == "p")
+    dev = next(a.device for k, a in zip(kinds, args)
+               if k == "p" and a is not None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(h, name)(*cargs, ctypes.c_void_p(stream))

@@ -24,6 +24,15 @@
 // ~1 KB).  254 dependent launches at 1080p each wait for their slowest
 // block, whose time is the serial chain inside one MB: 16 dependent I4
 // blocks with two barriers each.
+//
+// Banded variant (B2b, the Pallas kernel's banded=True): the planes hold
+// one band of MB rows, and the MBs on its first row read their above,
+// above-right and corner aprons from the halo, the bottom luma row hy
+// [F, 16*mb_w] and the two bottom chroma rows hc [F, 2, 8*mb_w] of the
+// band above, instead of from row -1 of the planes.  The TPU packs the
+// halo into a lane-shifted block per diagonal; here it stays as rows and
+// a block indexes them by column, with the same bounds as plane reads.
+// hy == hc == nullptr is B2.
 #include "common.cuh"
 
 namespace {
@@ -35,6 +44,8 @@ struct Planes {
   uint8_t* y;
   uint8_t* cb;
   uint8_t* cr;
+  const uint8_t* hy;  // halo rows of the band above, or nullptr
+  const uint8_t* hc;
   int mb_w, mb_h;
 };
 
@@ -78,23 +89,30 @@ intra_diag_kernel(const uint8_t* __restrict__ meta,
   for (int i = t; i < 17 * 25; i += kThreads) (&W[0][0])[i] = 0;
   if (t < 32) m[t] = meta[(size_t)mb * 32 + t];
   __syncthreads();
+  // the row above the MB: row y0-1 of the planes, or on a band's first
+  // MB row the halo (zeros when there is neither)
+  const uint8_t* above_y = my > 0 ? Y + (size_t)(y0 - 1) * Wd
+                           : P.hy ? P.hy + (size_t)f * Wd : nullptr;
   if (t < 25) {  // corner, above 16, above-right 8
     int col = x0 - 1 + t;
-    if (my > 0 && col >= 0 && col < Wd) W[0][t] = Y[(size_t)(y0 - 1) * Wd + col];
+    if (above_y && col >= 0 && col < Wd) W[0][t] = above_y[col];
   } else if (t < 41) {  // left 16
     int r = t - 25;
     if (mx > 0) W[1 + r][0] = Y[(size_t)(y0 + r) * Wd + x0 - 1];
-  } else if (t < 57) {  // chroma above 8 and left 8, both planes
-    int p = (t - 41) >> 3, i = (t - 41) & 7;
+  } else if (t < 59) {  // chroma above 8 and left 8, then corners
+    const bool corner = t >= 57;
+    int p = corner ? t - 57 : (t - 41) >> 3, i = (t - 41) & 7;
     const uint8_t* C = (p ? P.cr : P.cb) + (size_t)f * Hc * Wc;
-    int cx0 = 8 * mx, cy0 = 8 * my;
-    craw[p][1 + i] = my > 0 ? C[(size_t)(cy0 - 1) * Wc + cx0 + i] : 0;
-    craw[p][9 + i] = mx > 0 ? C[(size_t)(cy0 + i) * Wc + cx0 - 1] : 0;
-  } else if (t < 59) {  // chroma corners
-    int p = t - 57;
-    const uint8_t* C = (p ? P.cr : P.cb) + (size_t)f * Hc * Wc;
-    craw[p][0] = (mx > 0 && my > 0)
-                     ? C[(size_t)(8 * my - 1) * Wc + 8 * mx - 1] : 0;
+    const uint8_t* above_c =
+        my > 0 ? C + (size_t)(8 * my - 1) * Wc
+               : (P.hc ? P.hc + ((size_t)f * 2 + p) * Wc : nullptr);
+    int cx0 = 8 * mx;
+    if (corner) {
+      craw[p][0] = (mx > 0 && above_c) ? above_c[cx0 - 1] : 0;
+    } else {
+      craw[p][1 + i] = above_c ? above_c[cx0 + i] : 0;
+      craw[p][9 + i] = mx > 0 ? C[(size_t)(8 * my + i) * Wc + cx0 - 1] : 0;
+    }
   }
   __syncthreads();
 
@@ -298,9 +316,10 @@ DT_EXPORT int dt_intra_wavefront(const void* meta, const void* yres,
                                  const void* cres, const void* tap4,
                                  const void* tap8, const void* avail4,
                                  const void* avail8, void* y, void* cb,
-                                 void* cr, int mb_w, int mb_h, int F,
-                                 void* stream) {
-  Planes P{(uint8_t*)y, (uint8_t*)cb, (uint8_t*)cr, mb_w, mb_h};
+                                 void* cr, const void* hy, const void* hc,
+                                 int mb_w, int mb_h, int F, void* stream) {
+  Planes P{(uint8_t*)y, (uint8_t*)cb, (uint8_t*)cr, (const uint8_t*)hy,
+           (const uint8_t*)hc, mb_w, mb_h};
   const int n_diag = mb_w + 2 * (mb_h - 1);
   for (int d = 0; d < n_diag; ++d) {
     DiagRange r = diag_range(d, mb_w, mb_h);

@@ -30,6 +30,7 @@ from .kernels.densify import densify
 from .kernels.geometry import BLK, L, round_up
 from .kernels.transform import stage_a_residuals
 from .kernels.wavefront import intra_recon, recon_inputs
+from .pipeline import _dbctl_of, decode_annexb_fast
 from .tables import chroma_qp, decoder_tables
 
 I16_STRIDE = 408    # luma_lv 256 | luma_dc 16 | chroma_dc 8 | chroma_ac 128
@@ -224,17 +225,6 @@ class PackedGopDecoder(torch.nn.Module):
         return deblock(pack_params(pre), y, cb, cr, mb_w, mb_h)
 
 
-def _dbctl_of(headers):
-    """Per-slice deblock control rows (disable_idc, alpha_off, beta_off)."""
-    return np.asarray([(1, 0, 0) if h.deblocking is not None
-                       and h.deblocking.disable_idc == 1 else
-                       (0, 0, 0) if h.deblocking is None else
-                       (h.deblocking.disable_idc,
-                        h.deblocking.alpha_c0_offset_div2 * 2,
-                        h.deblocking.beta_offset_div2 * 2)
-                       for h in headers], np.int32)
-
-
 def _pcm_batch_rows(batch, sps, pps, F, n, n_threads):
     """Host rows of a batch holding PCM MBs, which the packed wire does
     not carry: dense coefficient rows [F, n, 408] int16, per-MB bytes
@@ -285,9 +275,13 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     "cuda" (the default) launches the kernels and raises when CUDA is
     absent; "cpu" runs their plain PyTorch versions.  Streams outside the
     batched scope (inter, non-4:2:0, lossless, FMO, CAVLC, scaling
-    matrices, high bit depth) are decoded by the native C++ path
-    (``dryv_tpu.native.full``) and counted in
-    ``decode_annexb_gop_pipelined.fallback_calls``."""
+    matrices, high bit depth) leave it, counted in
+    ``decode_annexb_gop_pipelined.fallback_calls``, for the per-picture
+    path ``pipeline.decode_annexb_fast`` on the same device, as the JAX
+    pipeline sends them to its own; that path hands the ones outside the
+    device scope (inter, non-4:2:0, lossless, FMO, high bit depth) on to
+    the native C++ decoder, counted in
+    ``pipeline.decode_annexb_fast.host_calls``."""
     from dryv_tpu.decoder import DecodedFrame
     from dryv_tpu.native.entropy import decode_pack_picture_islices
     from dryv_tpu.utils.obs import StageTimers
@@ -301,9 +295,8 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
         if device_out or stacked_out:
             raise ValueError("device_out/stacked_out need a stream inside "
                              "the batched all-intra scope")
-        from dryv_tpu.native.full import decode_annexb_native
         decode_annexb_gop_pipelined.fallback_calls += 1
-        return decode_annexb_native(stream, n_threads=n_threads)
+        return decode_annexb_fast(stream, n_threads=n_threads, device=dev)
 
     mb_w, mb_h = sps.pic_width_in_mbs, sps.frame_height_in_mbs
     n = mb_w * mb_h

@@ -8,6 +8,11 @@ walk the diagonals in order and read every apron from the planes that
 earlier diagonals wrote; ``csrc/intra_wavefront.cu`` says how the CUDA
 kernel maps that onto the card.
 
+With ``halo`` the same kernel is B2b, the Pallas kernel's
+``banded=True``: the planes hold one band of MB rows, and its first MB
+row reads the above, above-right and corner aprons from the bottom pixel
+rows of the band above (``dryv_tpu_torch.parallel.bands``).
+
 Inputs per MB (``recon_inputs`` builds them):
   meta  u8  [F, n, 32]   kind, i16 mode, chroma mode, avail a..d, 16
                          z-scan 4x4 modes, 4 8x8 modes (rows as
@@ -226,17 +231,21 @@ def _recon_chroma(cw, cmode, kind, ava, avb, cr):
     return torch.where((kind == KIND_PCM)[:, None, None, None], cr, out)
 
 
-def intra_recon_plain(meta, yres, cres, tables, mb_w, mb_h):
-    """Plain PyTorch version of B2, vectorised over the MBs of each
-    diagonal in all frames."""
+def intra_recon_plain(meta, yres, cres, tables, mb_w, mb_h, halo=None):
+    """Plain PyTorch version of B2 (B2b with ``halo``), vectorised over
+    the MBs of each diagonal in all frames."""
     F, n, _ = meta.shape
     dev = meta.device
     H, Wd = 16 * mb_h, 16 * mb_w
     # planes padded by 1 row on top, 1 column on the left and 8 on the
-    # right: out-of-picture aprons read 0 (legal modes never use them)
+    # right: out-of-picture aprons read 0 (legal modes never use them);
+    # a band's top pad row holds the halo
     Y = torch.zeros((F, H + 1, Wd + 9), dtype=torch.int32, device=dev)
     C = torch.zeros((F, 2, H // 2 + 1, Wd // 2 + 1), dtype=torch.int32,
                     device=dev)
+    if halo is not None:
+        Y[:, 0, 1:Wd + 1] = halo[0]
+        C[:, :, 0, 1:] = halo[1]
     sched = diag_schedule(mb_w, mb_h)[0]
     i17 = torch.arange(17, device=dev)
     i25 = torch.arange(25, device=dev)
@@ -278,10 +287,16 @@ def intra_recon_plain(meta, yres, cres, tables, mb_w, mb_h):
             C[:, 0, 1:, 1:].to(torch.uint8), C[:, 1, 1:, 1:].to(torch.uint8))
 
 
-def intra_recon(meta, yres, cres, tables, mb_w, mb_h):
+def intra_recon(meta, yres, cres, tables, mb_w, mb_h, halo=None):
     """B2: (meta, yres, cres) -> (y, cb, cr) uint8 planes.  CPU tensors
     take the plain version; CUDA tensors launch the kernel (one launch
-    per anti-diagonal, issued by one C call)."""
+    per anti-diagonal, issued by one C call).
+
+    halo = (hy uint8 [F, 16*mb_w], hc uint8 [F, 2, 8*mb_w]), the bottom
+    luma row and the two bottom chroma rows of the band above, makes it
+    B2b: MB row 0 reads its above, above-right and corner aprons there.
+    B2b launches count in ``intra_recon.banded_launches``, B2's in
+    ``intra_recon.launches``."""
     F, n, rows = meta.shape
     if n != mb_w * mb_h or rows != META_ROWS:
         raise ValueError(f"meta shape {tuple(meta.shape)} does not match "
@@ -292,19 +307,31 @@ def intra_recon(meta, yres, cres, tables, mb_w, mb_h):
     if cres.shape != (F, n, 2, 8, 8) or cres.dtype != torch.int16:
         raise ValueError(f"cres must be int16 [F,n,2,8,8], got "
                          f"{cres.dtype} {tuple(cres.shape)}")
+    if halo is not None:
+        hy, hc = halo
+        if hy.shape != (F, 16 * mb_w) or hc.shape != (F, 2, 8 * mb_w) \
+                or hy.dtype != torch.uint8 or hc.dtype != torch.uint8:
+            raise ValueError(f"halo must be uint8 [F,{16 * mb_w}] and "
+                             f"[F,2,{8 * mb_w}], got {hy.dtype} "
+                             f"{tuple(hy.shape)} and {hc.dtype} "
+                             f"{tuple(hc.shape)}")
     if meta.device.type == "cpu":
-        return intra_recon_plain(meta, yres, cres, tables, mb_w, mb_h)
+        return intra_recon_plain(meta, yres, cres, tables, mb_w, mb_h, halo)
     tabs = [tables[k] for k in ("tap4", "tap8", "avail4", "avail8")]
-    _build.check_cuda(meta, yres, cres, *tabs)
+    _build.check_cuda(meta, yres, cres, *tabs, *(halo or ()))
     y = torch.empty((F, 16 * mb_h, 16 * mb_w), dtype=torch.uint8,
                     device=meta.device)
     cb = torch.empty((F, 8 * mb_h, 8 * mb_w), dtype=torch.uint8,
                      device=meta.device)
     cr = torch.empty_like(cb)
     _build.call("dt_intra_wavefront", meta, yres, cres, *tabs, y, cb, cr,
-                mb_w, mb_h, F)
-    intra_recon.launches += 1
+                *(halo or (None, None)), mb_w, mb_h, F)
+    if halo is None:
+        intra_recon.launches += 1
+    else:
+        intra_recon.banded_launches += 1
     return y, cb, cr
 
 
 intra_recon.launches = 0
+intra_recon.banded_launches = 0

@@ -2,7 +2,7 @@
 kernels) against the JAX pipeline (Pallas in interpret mode) and the
 libavcodec oracle: distinct frames per batch, tail padding, deblocked
 and undeblocked streams, vals-stride growth and |v|>127 fixes at low QP,
-PCM batches, device outputs, and the native fallback for inter."""
+PCM batches, device outputs, and where inter streams go."""
 from functools import lru_cache
 
 import numpy as np
@@ -101,14 +101,21 @@ def test_device_outputs():
 
 
 def test_inter_stream_falls_back():
-    """P-frame streams are outside the batched scope: the native C++
-    decoder takes them, and the counter says so."""
+    """P-frame streams are outside the batched scope and the per-picture
+    device path's too.  ``decode_annexb_gop_pipelined.fallback_calls``
+    counts streams that left the batched scope (for
+    ``pipeline.decode_annexb_fast``); ``decode_annexb_fast.host_calls``
+    counts those that reached the native C++ decoder from there."""
+    from dryv_tpu_torch.pipeline import decode_annexb_fast
+
     stream = encode_x264(_frames(4), x264_params="qp=30:keyint=2:bframes=0:"
                                                  "scenecut=0:min-keyint=2")
     before = decode_annexb_gop_pipelined.fallback_calls
+    host_before = decode_annexb_fast.host_calls
     got = decode_annexb_gop_pipelined(stream, gop=4, n_threads=1,
                                       device="cpu")
     assert decode_annexb_gop_pipelined.fallback_calls == before + 1
+    assert decode_annexb_fast.host_calls == host_before + 1
     _assert_frames(got, decode_annexb(stream))
     with pytest.raises(ValueError):
         decode_annexb_gop_pipelined(stream, device="cpu", stacked_out=True)

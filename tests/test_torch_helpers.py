@@ -55,6 +55,35 @@ def test_blob_helpers():
         assert tgp._round_cap(x, q) == jgp._round_cap(x, q)
 
 
+def test_syntax_keys_and_stack_frames():
+    from dryv_tpu.parallel.gop import stack_frames
+    from dryv_tpu.pipeline import SYNTAX_KEYS
+    from dryv_tpu.testing.fixtures import get_fixture
+    from dryv_tpu_torch import syntax
+    from dryv_tpu_torch.pipeline import frames_from_stream
+
+    assert syntax.SYNTAX_KEYS == SYNTAX_KEYS
+    stream = get_fixture("slices_qp28")[0]
+    fs_list = frames_from_stream(stream)[0] * 2
+    got = syntax.stack_frames(fs_list)
+    ref = stack_frames(fs_list)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k])
+
+
+@pytest.mark.parametrize("geom,n_bands", [((4, 3), 2), ((8, 6), 4),
+                                          ((120, 68), 3), ((5, 4), 3)])
+def test_band_schedule(geom, n_bands):
+    from dryv_tpu.parallel.bands import band_schedule
+    from dryv_tpu_torch.parallel.bands import band_schedule as tbs
+
+    got, ref = tbs(*geom, n_bands), band_schedule(*geom, n_bands)
+    assert got[0] == ref[0]
+    for a, b in zip(got[1:], ref[1:]):
+        np.testing.assert_array_equal(a, b)
+
+
 FIXTURES = ["mix_qp26", "pcm", "slices_qp28", "dblk_slices_qp28",
             "cavlc_mix_qp26", "c422_qp27", "lossless_i4", "scal_mix8_qp28",
             "scal_pps_qp30", "mono_qp26"]

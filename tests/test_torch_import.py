@@ -15,7 +15,10 @@ MODULES = ("dryv_tpu_torch", "dryv_tpu_torch.gop_pipeline",
            "dryv_tpu_torch.kernels.transform",
            "dryv_tpu_torch.kernels.densify",
            "dryv_tpu_torch.kernels.wavefront",
-           "dryv_tpu_torch.kernels.deblock")
+           "dryv_tpu_torch.kernels.deblock", "dryv_tpu_torch.pipeline",
+           "dryv_tpu_torch.syntax", "dryv_tpu_torch.parallel",
+           "dryv_tpu_torch.parallel.mesh", "dryv_tpu_torch.parallel.gop",
+           "dryv_tpu_torch.parallel.bands")
 
 
 def _run(code):

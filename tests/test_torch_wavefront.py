@@ -12,9 +12,9 @@ from dryv_tpu_torch.tables import decoder_tables
 from test_pallas_wavefront import _random_syntax
 
 
-def port_recon(s, y_resid, c_resid, mb_w, mb_h, tables=None):
+def port_recon(s, y_resid, c_resid, mb_w, mb_h, tables=None, halo=None):
     """Spatial residual tiles as the Pallas recon takes them -> planes
-    through recon_inputs + intra_recon on the CPU."""
+    through recon_inputs + intra_recon (B2b with `halo`) on the CPU."""
     from dryv_tpu.coeffs import KIND_I8
 
     F, n = s["kind"].shape
@@ -26,7 +26,7 @@ def port_recon(s, y_resid, c_resid, mb_w, mb_h, tables=None):
     meta, yres, cres = recon_inputs(st, torch.from_numpy(y_z),
                                     torch.from_numpy(c_resid))
     return intra_recon(meta, yres, cres, tables or decoder_tables("cpu"),
-                       mb_w, mb_h)
+                       mb_w, mb_h, halo=halo)
 
 
 @pytest.mark.parametrize("geom,F", [((8, 6), 2), ((5, 3), 4), ((1, 1), 1)])
