@@ -2,12 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout and
-holds each against its plain PyTorch version at the shapes its path
-gives it (1080p batches of 16 pictures; one band of 120x17 MBs x 4 for
-the banded wavefront).  Then it drives each path of the port with the
-launch counters set to 0 just before and read just after, and checks
-every frame bit-exact against the native C++ decoder or a stored golden:
+    python3 chip_smoke.py --compare-b2 DIR   # also time an earlier B2
+
+Builds the port's C++ host library (g++) and CUDA kernels (nvcc) from
+the sources in this checkout, and holds each kernel against its plain
+PyTorch version at the shapes its paths give it (1080p batches of 16
+pictures, and of 1 for the per-picture path's intra wavefront; one band
+of 120x17 MBs x 4 for the banded wavefront), with a tolerance of 0: the
+decoder is bit-exact.  Each kernel's bound is the bytes it must move
+(each input read once, each output written once) over the card's
+3.35 TB/s.  Then it drives each path of the port with the launch
+counters set to 0 just before and read just after, and checks every
+frame bit-exact against the native C++ decoder or a stored golden:
 
 - the batched all-intra decode,
   ``gop_pipeline.decode_annexb_gop_pipelined`` (densify, intra
@@ -21,13 +27,18 @@ every frame bit-exact against the native C++ decoder or a stored golden:
   that repeat it.
 
 It times the kernels, the end-to-end batched decode, the per-picture
-decode and the banded pipeline beside the unbanded wavefront.  Any
-failure ends the run with a non-zero exit and no result line.  The last
-line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON.
+decode and the banded pipeline beside the unbanded wavefront.  With
+--compare-b2 DIR (a directory holding an earlier ``intra_wavefront.cu``
+and the ``common.cuh`` it includes, not part of the repo) it also builds
+that B2 and times it and the current one in turns (old, new, new, old)
+at each shape.  Any failure ends the run with a non-zero exit and no
+result line.  The last line is {"ok": true, "device": {...}}; the line
+before it holds the per-kernel JSON.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -41,6 +52,7 @@ import torch
 F = 16           # pictures per batch, as the benchmark runs
 MB_W, MB_H = 120, 68
 REPS = 5
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 
 
 def fail(msg):
@@ -100,7 +112,7 @@ def random_syntax(rng, mb_w, mb_h, F, below_band=False):
 def scaling_lists():
     """Custom scaling matrices, the recipe of the scal_* fixtures
     (dryv_tpu/testing/fixtures.py)."""
-    from dryv_tpu.avc.sps import ScalingLists
+    from dryv_tpu_torch.avc.sps import ScalingLists
 
     rng = np.random.RandomState(7)
     l4 = np.stack([np.sort(np.clip(10 + rng.randint(-6, 26, 16), 1, 255))
@@ -115,8 +127,8 @@ def encoder_stream(mb_w, mb_h, n_pics, qp=30, cabac=True, scaling=False):
     every MB kind including PCM, 8x8 transform, two MB rows per slice,
     deblocking on, chroma QP offset 2; CAVLC with cabac=False, an SPS
     scaling matrix with scaling=True."""
-    from dryv_tpu.encoder import default_sps_pps, encode_frame_annexb
-    from dryv_tpu.encoder.intra_encoder import IntraEncoder
+    from dryv_tpu_torch.encoder import default_sps_pps, encode_frame_annexb
+    from dryv_tpu_torch.encoder.intra_encoder import IntraEncoder
 
     kinds = ["i8", "i4", "i16", "pcm"]
     out = b""
@@ -146,7 +158,77 @@ def encoder_stream(mb_w, mb_h, n_pics, qp=30, cabac=True, scaling=False):
     return out
 
 
+def bound_ms(*tensors):
+    """Least time to move the tensors' bytes once at the card's rate."""
+    return sum(t.numel() * t.element_size() for t in tensors) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def old_b2_caller(src_dir):
+    """Builds the B2 of an earlier tree (``src_dir/intra_wavefront.cu``,
+    whose C entry takes no scratch) and returns a function with
+    ``intra_recon``'s arguments that launches it."""
+    from pathlib import Path
+
+    from dryv_tpu_torch import _build
+    from dryv_tpu_torch._libbuild import build_library, library_path
+
+    src = Path(src_dir).resolve() / "intra_wavefront.cu"
+    lib_path = library_path("libold_b2", [src, src.with_name("common.cuh")],
+                            " ".join(_build.NVCC_FLAGS).encode())
+    nvcc = _build._nvcc()
+    build_library(lib_path, [src],
+                  lambda s, o: [nvcc, *_build.NVCC_FLAGS, "-c", str(s),
+                                "-o", str(o)],
+                  lambda objs, out: [nvcc, "-shared", *map(str, objs),
+                                     "-o", str(out)])
+    fn = ctypes.CDLL(str(lib_path)).dt_intra_wavefront
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+
+    def call(meta, yres, cres, tables, mb_w, mb_h, halo=None):
+        F = meta.shape[0]
+        dev = meta.device
+        y = torch.empty((F, 16 * mb_h, 16 * mb_w), dtype=torch.uint8,
+                        device=dev)
+        cb = torch.empty((F, 8 * mb_h, 8 * mb_w), dtype=torch.uint8,
+                         device=dev)
+        cr = torch.empty_like(cb)
+        ptrs = [meta, yres, cres] + [tables[k] for k in
+                                     ("tap4", "tap8", "avail4", "avail8")] \
+            + [y, cb, cr, *(halo or (None, None))]
+        rc = fn(*[None if t is None else t.data_ptr() for t in ptrs],
+                mb_w, mb_h, F, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"earlier B2: CUDA error {rc}")
+        return y, cb, cr
+    return call
+
+
+def kernel_launches_in_profile(fn, name):
+    """Device kernels whose name holds `name` in a torch.profiler trace
+    of one fn() call; None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None
+    return sum(1 for e in evs if name in e.name)
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--compare-b2", metavar="DIR",
+                    help="time an earlier B2 (DIR/intra_wavefront.cu) in "
+                         "turns with the current one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -155,9 +237,8 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    from dryv_tpu.decoder import DecodedFrame
-    from dryv_tpu.native.full import decode_annexb_native
     from dryv_tpu_torch import _build, parallel
+    from dryv_tpu_torch.decoder import DecodedFrame
     from dryv_tpu_torch.gop_pipeline import (PackedGopDecoder,
                                              decode_annexb_gop_pipelined)
     from dryv_tpu_torch.kernels.deblock import (deblock, deblock_plain,
@@ -167,36 +248,51 @@ def main():
     from dryv_tpu_torch.kernels.wavefront import (intra_recon,
                                                   intra_recon_plain,
                                                   recon_inputs)
+    from dryv_tpu_torch.native import build as host_build
+    from dryv_tpu_torch.native.full import decode_annexb_native
     from dryv_tpu_torch.pipeline import (decode_annexb_fast,
                                          frames_from_stream, recon_syntax,
                                          tables_for)
     from dryv_tpu_torch.syntax import stack_frames, syntax_tensors
     from dryv_tpu_torch.tables import decoder_tables
-    from dryv_tpu.utils.obs import StageTimers
+    from dryv_tpu_torch.utils.obs import StageTimers
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name}")
 
-    # ---- phase 2: build every kernel from the checkout's sources --------
+    # ---- phase 2: build the host library and every kernel from the
+    # checkout's sources
+    t0 = time.perf_counter()
+    print(f"host library: {host_build.build(force=True).name}")
+    print(f"build: C++ host library {time.perf_counter() - t0:.2f} s "
+          f"(g++, one process per source)")
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.lib()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    print(f"build: CUDA kernels {time.perf_counter() - t0:.2f} s "
+          f"(nvcc, sm_90a, one process per source)")
 
     tables = decoder_tables(dev)
     rng = np.random.default_rng(2024)
     kernels = {}
 
-    def record(key, route_src, replaces, err, ms, plain_ms):
+    def record(key, route_src, replaces, err, ms, plain_ms, bound):
         kernels[key] = {"name": key, "route": "cuda", "source": route_src,
                         "replaces": replaces, "launches": None,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": "bytes",
+                        "library_ms": None}
         print(f"kernel {key}: max_abs_err {err} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms  [{card}]")
+              f"plain {plain_ms:.4f} ms bound {bound:.4f} ms "
+              f"({bound / ms:.2%} of it)  [{card}]")
         if err != 0:
             fail(f"{key} differs from its plain version (max {err})")
+
+    def max_err(got, want):
+        return max(int((a.int() - b.int()).abs().max())
+                   for a, b in zip(got, want))
 
     # ---- phase 3: each kernel against its plain version, 1080p x 16 ----
     npad = 8192
@@ -215,29 +311,17 @@ def main():
             record("densify", "dryv_tpu_torch/csrc/densify.cu",
                    "dryv_tpu/kernels/densify.py:38", err,
                    cuda_ms(lambda: densify(bmp, vals), 20),
-                   cuda_ms(lambda: densify_plain(bmp, vals), 5))
+                   cuda_ms(lambda: densify_plain(bmp, vals), 5),
+                   bound_ms(bmp, vals, out_k))
         elif err:
             fail(f"densify W={W} differs (max {err})")
         print(f"densify bmp [{F}, {npad}, 51] vals [{F}, {npad}, {W}]: "
               f"bit-exact")
 
-    s_np, yz_np, c_np = random_syntax(rng, MB_W, MB_H, F)
-    s = {k: torch.from_numpy(v).to(dev) for k, v in s_np.items()}
-    meta, yres, cres = recon_inputs(s, torch.from_numpy(yz_np).to(dev),
-                                    torch.from_numpy(c_np).to(dev))
-    rk = intra_recon(meta, yres, cres, tables, MB_W, MB_H)
-    rp = intra_recon_plain(meta, yres, cres, tables, MB_W, MB_H)
-    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(rk, rp))
-    record("intra_wavefront", "dryv_tpu_torch/csrc/intra_wavefront.cu",
-           "dryv_tpu/kernels/pallas_wavefront.py:140", err,
-           cuda_ms(lambda: intra_recon(meta, yres, cres, tables, MB_W, MB_H),
-                   10),
-           cuda_ms(lambda: intra_recon_plain(meta, yres, cres, tables, MB_W,
-                                             MB_H), 2))
-
-    # B2b: one band of 17 MB rows x 4 pictures below another band; its
-    # halo is the bottom luma row and chroma rows of the band above,
-    # taken from the 1080p golden picture
+    # B2 at the batched path's shape (F = 16) and the per-picture path's
+    # (F = 1); B2b at one band of 17 MB rows x 4 pictures below another
+    # band, its halo the bottom luma row and chroma rows of the band
+    # above, taken from the 1080p golden picture
     BR, FB = 17, 4
     gold = np.load("benchdata/bench1080p_golden.npz")
     hy = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
@@ -245,22 +329,91 @@ def main():
     hc = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
         np.stack([gold["cb"][8 * BR - 1], gold["cr"][8 * BR - 1]]),
         (FB, 2, 8 * MB_W)))).to(dev)
-    sb_np, yzb_np, cb_np = random_syntax(rng, MB_W, BR, FB, below_band=True)
-    sb = {k: torch.from_numpy(v).to(dev) for k, v in sb_np.items()}
-    band_in = recon_inputs(sb, torch.from_numpy(yzb_np).to(dev),
-                        torch.from_numpy(cb_np).to(dev))
-    bk = intra_recon(*band_in, tables, MB_W, BR, halo=(hy, hc))
-    bp = intra_recon_plain(*band_in, tables, MB_W, BR, (hy, hc))
-    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(bk, bp))
-    b0 = intra_recon(*band_in, tables, MB_W, BR, halo=(hy * 0, hc * 0))
-    if all(torch.equal(a, b) for a, b in zip(bk, b0)):
-        fail("intra_wavefront_banded: the halo changed no sample")
-    record("intra_wavefront_banded", "dryv_tpu_torch/csrc/intra_wavefront.cu",
-           "dryv_tpu/kernels/pallas_wavefront.py:140", err,
-           cuda_ms(lambda: intra_recon(*band_in, tables, MB_W, BR,
-                                       halo=(hy, hc)), 10),
-           cuda_ms(lambda: intra_recon_plain(*band_in, tables, MB_W, BR,
-                                             (hy, hc)), 2))
+    b2_cases = {}
+    for key, rows, nf, halo in (("intra_wavefront", MB_H, F, None),
+                                ("intra_wavefront_f1", MB_H, 1, None),
+                                ("intra_wavefront_banded", BR, FB,
+                                 (hy, hc))):
+        s_np, yz_np, c_np = random_syntax(rng, MB_W, rows, nf,
+                                          below_band=halo is not None)
+        s = {k: torch.from_numpy(v).to(dev) for k, v in s_np.items()}
+        inputs = recon_inputs(s, torch.from_numpy(yz_np).to(dev),
+                              torch.from_numpy(c_np).to(dev))
+        b2_cases[key] = (inputs, rows, halo, s)
+        got = intra_recon(*inputs, tables, MB_W, rows, halo=halo)
+        want = intra_recon_plain(*inputs, tables, MB_W, rows, halo)
+        err = max_err(got, want)
+        if halo is not None:
+            zero = intra_recon(*inputs, tables, MB_W, rows,
+                               halo=(hy * 0, hc * 0))
+            if all(torch.equal(a, b) for a, b in zip(got, zero)):
+                fail("intra_wavefront_banded: the halo changed no sample")
+        ms = cuda_ms(lambda: intra_recon(*inputs, tables, MB_W, rows,
+                                         halo=halo), 10)
+        plain = cuda_ms(lambda: intra_recon_plain(*inputs, tables, MB_W,
+                                                  rows, halo), 2)
+        bound = bound_ms(*inputs, *got, *(halo or ()))
+        if key == "intra_wavefront_f1":
+            print(f"kernel intra_wavefront at F = 1 (the per-picture "
+                  f"path's shape): max_abs_err {err} kernel {ms:.4f} ms "
+                  f"plain {plain:.4f} ms bound {bound:.4f} ms "
+                  f"({bound / ms:.2%} of it)  [{card}]")
+            if err:
+                fail(f"intra_wavefront at F = 1 differs (max {err})")
+        else:
+            record(key, "dryv_tpu_torch/csrc/intra_wavefront.cu",
+                   "dryv_tpu/kernels/pallas_wavefront.py:140", err, ms,
+                   plain, bound)
+        if key == "intra_wavefront":
+            rk = got
+    # one B2 call is one launch on the device (one profiler session: a
+    # second session in the process records no device events)
+    n_prof = kernel_launches_in_profile(
+        lambda: [intra_recon(*inputs, tables, MB_W, rows, halo=halo)
+                 for inputs, rows, halo, _ in b2_cases.values()],
+        "intra_rows_kernel")
+    print(f"device kernels named intra_rows_kernel in a torch.profiler "
+          f"trace of {len(b2_cases)} B2 calls ({', '.join(b2_cases)}): "
+          f"{'not measured' if n_prof is None else n_prof}")
+    if n_prof is not None and n_prof != len(b2_cases):
+        fail(f"{len(b2_cases)} B2 calls launched {n_prof} B2 kernels")
+
+    # where B2's time goes: the same F = 1 picture with every MB of one
+    # kind (PCM predicts nothing, so its time is the schedule's: flag
+    # hand-offs, barriers, loads and stores)
+    inputs1 = b2_cases["intra_wavefront_f1"][0]
+    by_kind = {}
+    for kname, kind in (("PCM", 3), ("I16", 2), ("I8", 1), ("I4", 0)):
+        meta_k = inputs1[0].clone()
+        meta_k[..., 0] = kind
+        inp = (meta_k, *inputs1[1:])
+        err = max_err(intra_recon(*inp, tables, MB_W, MB_H),
+                      intra_recon_plain(*inp, tables, MB_W, MB_H))
+        if err:
+            fail(f"intra_wavefront, all {kname}: differs (max {err})")
+        by_kind[kname] = cuda_ms(lambda: intra_recon(*inp, tables, MB_W,
+                                                     MB_H), 10)
+    print(f"intra_wavefront at F = 1 with every MB one kind, bit-exact, "
+          f"CUDA events, mean of 10: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in by_kind.items())
+          + f"  [{card}]")
+
+    if args.compare_b2:
+        old = old_b2_caller(args.compare_b2)
+        for key, (inputs, rows, halo, _) in b2_cases.items():
+            got_old = old(*inputs, tables, MB_W, rows, halo)
+            got_new = intra_recon(*inputs, tables, MB_W, rows, halo=halo)
+            if max_err(got_old, got_new):
+                fail(f"{key}: the earlier B2 and the current differ")
+            t = [cuda_ms(lambda fn=fn: fn(*inputs, tables, MB_W, rows,
+                                           halo=halo), 10)
+                 for fn in (old, intra_recon, intra_recon, old)]
+            print(f"{key} ({MB_W}x{rows} MBs x {inputs[0].shape[0]}), "
+                  f"CUDA events, mean of 10, in turns: earlier B2 "
+                  f"{t[0]:.4f} / {t[3]:.4f} ms, this B2 {t[1]:.4f} / "
+                  f"{t[2]:.4f} ms; bit-exact to each other  [{card}]")
+
+    s = b2_cases["intra_wavefront"][3]
 
     n = MB_W * MB_H
     qp = torch.from_numpy(rng.integers(10, 52, (F, n))).to(dev)
@@ -294,7 +447,8 @@ def main():
 
     record("deblock", "dryv_tpu_torch/csrc/deblock.cu",
            "dryv_tpu/kernels/pallas_deblock.py:93", err, deblock_fresh(10),
-           cuda_ms(lambda: deblock_plain(prm, *planes, MB_W, MB_H), 2))
+           cuda_ms(lambda: deblock_plain(prm, *planes, MB_W, MB_H), 2),
+           bound_ms(prm, *planes, *dk))
 
     # ---- phases 4-6: the main path, bit-exact, counted ----------------
     nthreads = os.cpu_count() or 1

@@ -1,37 +1,36 @@
 """Build and bind the hand-written CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into
-one shared library with a plain C interface under ``build/`` (listed in
-``.gitignore``), named by a hash of the sources and flags so an edit
-rebuilds it.  The library is loaded with ``ctypes``: every pointer and
-the stream are ``c_void_p`` (``None`` passes a null pointer), every size
-a ``c_int``.  Each C entry returns ``cudaGetLastError()`` after its
-launches, and ``call`` raises when that is not 0.  Nothing here runs at
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links them into one
+shared library with a plain C interface under ``build/`` (``_libbuild``:
+listed in ``.gitignore``, named by a hash of the sources and flags so an
+edit rebuilds it).  The library is loaded with ``ctypes``: every pointer
+and the stream are ``c_void_p`` (``None`` passes a null pointer), every
+size a ``c_int``.  Each C entry returns ``cudaGetLastError()`` after its
+launch, and ``call`` raises when that is not 0.  Nothing here runs at
 import time.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from ._libbuild import build_library, library_path
+
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
-BUILD = HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 # C entry point -> argument kinds: "p" device pointer (or None), "i" int.
 # The stream is appended to every call.
 ENTRIES = {
     "dt_densify": "pppii",
-    "dt_intra_wavefront": "ppppppppppppiii",
+    "dt_intra_wavefront": "pppppppppppppiii",
     "dt_deblock": "ppppiii",
 }
 
@@ -52,33 +51,21 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into build/ unless an up-to-date library is
-    there; returns its path.  verbose=True adds -Xptxas -v and prints
-    the compiler's report (registers, shared memory, spills)."""
+    there; returns its path.  verbose=True rebuilds with -Xptxas -v and
+    prints the compiler's report (registers, shared memory, spills)."""
     srcs = sorted(CSRC.glob("*.cu"))
-    deps = srcs + sorted(CSRC.glob("*.cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in deps:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    lib_path = BUILD / f"libdryv_kernels_{h.hexdigest()[:16]}.so"
-    if lib_path.exists() and not verbose:
-        return lib_path
-    BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, srcs)]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                               f"{r.stdout}\n{r.stderr}")
-        if verbose:
-            print(r.stdout + r.stderr)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    lib_path = library_path("libdryv_kernels",
+                            srcs + sorted(CSRC.glob("*.cuh")),
+                            " ".join(NVCC_FLAGS).encode())
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    log = build_library(
+        lib_path, srcs,
+        lambda s, o: [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(o)],
+        lambda objs, out: [nvcc, "-shared", *map(str, objs), "-o", str(out)],
+        force=verbose)
+    if verbose:
+        print(log)
     return lib_path
 
 

@@ -26,7 +26,7 @@ def main(argv=None):
                     help="print per-stage timing as JSON after decoding")
     args = ap.parse_args(argv)
 
-    from dryv_tpu.utils.obs import StageTimers
+    from .utils.obs import StageTimers
 
     from .video import TorchVideo
 

@@ -1,7 +1,7 @@
 """Batch-pipelined intra GOP decode on PyTorch: the port's main path.
 
-Per batch of F pictures: the C++ slice-parallel entropy stage of the JAX
-package (``dryv_tpu.native.entropy``, shared host code) fills one
+Per batch of F pictures: the C++ slice-parallel entropy stage (the port's
+copy of the JAX package's, ``native.entropy``) fills one
 preallocated uint8 blob in pinned host memory; the blob goes to the
 device in one non-blocking copy; ``PackedGopDecoder`` then densifies the
 coefficients (kernel B1), applies the |v|>127 and heavy-MB fixes,
@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dryv_tpu.coeffs import KIND_I8
+from .coeffs import KIND_I8
 
 from .device import resolve_device
 from .kernels.deblock import deblock, deblock_precompute_intra, pack_params
@@ -40,9 +40,9 @@ U8_STRIDE = 19      # kind qp_y i16_mode chroma_mode | modes4 8 (nibbles)
 
 
 def _parse_pictures(stream: bytes):
-    from dryv_tpu.avc import split_annexb
-    from dryv_tpu.avc.slice_header import SliceHeader
-    from dryv_tpu.decoder import SyntaxDecoder, group_access_units
+    from .avc import split_annexb
+    from .avc.slice_header import SliceHeader
+    from .decoder import SyntaxDecoder, group_access_units
 
     sd = SyntaxDecoder()
     rest = sd.feed_parameter_sets(list(split_annexb(stream)))
@@ -230,7 +230,7 @@ def _pcm_batch_rows(batch, sps, pps, F, n, n_threads):
     not carry: dense coefficient rows [F, n, 408] int16, per-MB bytes
     [F, n, 19] in the wire's u8 layout, pcm_y [F, n, 256] and pcm_c
     [F, n, 2, 8, 8] uint8.  The tail is padded with the last picture."""
-    from dryv_tpu.native.entropy import decode_picture_islices
+    from .native.entropy import decode_picture_islices
 
     i16 = np.zeros((F, n, I16_STRIDE), np.int16)
     u8 = np.zeros((F, n, U8_STRIDE), np.uint8)
@@ -282,9 +282,9 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     device scope (inter, non-4:2:0, lossless, FMO, high bit depth) on to
     the native C++ decoder, counted in
     ``pipeline.decode_annexb_fast.host_calls``."""
-    from dryv_tpu.decoder import DecodedFrame
-    from dryv_tpu.native.entropy import decode_pack_picture_islices
-    from dryv_tpu.utils.obs import StageTimers
+    from .decoder import DecodedFrame
+    from .native.entropy import decode_pack_picture_islices
+    from .utils.obs import StageTimers
 
     dev = resolve_device(device)
     cuda = dev.type == "cuda"

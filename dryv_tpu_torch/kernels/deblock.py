@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from dryv_tpu.coeffs import KIND_I8, KIND_PCM
+from ..coeffs import KIND_I8, KIND_PCM
 
 from .. import _build
 from ..tables import chroma_qp

@@ -19,8 +19,8 @@ from functools import lru_cache
 
 import numpy as np
 
-from dryv_tpu.avc.neighbors import POS_TO_ZSCAN, ZSCAN_4X4_POS
-from dryv_tpu.refimpl.transform import CLASS4, CLASS8, V4X4, V8X8
+from ..avc.neighbors import POS_TO_ZSCAN, ZSCAN_4X4_POS
+from ..refimpl.transform import CLASS4, CLASS8, V4X4, V8X8
 
 L = 408        # coefficient row length per MB
 NB = 51        # bitmap bytes per MB row (408 bits)

@@ -21,8 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from dryv_tpu.coeffs import KIND_I8, KIND_I16
-from dryv_tpu.avc.neighbors import ZSCAN_4X4_POS
+from ..coeffs import KIND_I8, KIND_I16
+from ..avc.neighbors import ZSCAN_4X4_POS
 
 # z-scan 4x4 block -> raster position 4*by + bx of its DC value
 _Z2P = [4 * y + x for (x, y) in ZSCAN_4X4_POS]

@@ -1,12 +1,14 @@
-"""Kernel B2: intra reconstruction along the anti-diagonal MB wavefront.
+"""Kernel B2: intra reconstruction along the MB wavefront.
 
 Replaces the Pallas kernel ``_build_kernel`` behind
 ``make_gop_recon_pallas`` in ``dryv_tpu/kernels/pallas_wavefront.py``.
-MB (x, y) predicts from (x-1, y), (x, y-1), (x+1, y-1) and (x-1, y-1),
-so all MBs with equal d = x + 2y are independent.  Both versions here
-walk the diagonals in order and read every apron from the planes that
-earlier diagonals wrote; ``csrc/intra_wavefront.cu`` says how the CUDA
-kernel maps that onto the card.
+MB (x, y) predicts from (x-1, y), (x, y-1), (x+1, y-1) and (x-1, y-1).
+The plain version walks the anti-diagonals d = x + 2y in order (all MBs
+on one are independent) and reads every apron from the planes that
+earlier diagonals wrote.  The CUDA kernel (``csrc/intra_wavefront.cu``)
+is one persistent launch whose blocks walk MB rows and order themselves
+through progress flags; ``row_tickets`` and ``apron_wait`` are its
+schedule in Python, which the CPU tests simulate.
 
 With ``halo`` the same kernel is B2b, the Pallas kernel's
 ``banded=True``: the planes hold one band of MB rows, and its first MB
@@ -27,8 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dryv_tpu.avc.neighbors import ZSCAN_4X4_POS
-from dryv_tpu.coeffs import KIND_I8, KIND_I16, KIND_PCM
+from ..avc.neighbors import ZSCAN_4X4_POS
+from ..coeffs import KIND_I8, KIND_I16, KIND_PCM
 
 from .. import _build
 from .geometry import Q2SP, Z2SP, diag_schedule
@@ -287,10 +289,28 @@ def intra_recon_plain(meta, yres, cres, tables, mb_w, mb_h, halo=None):
             C[:, 0, 1:, 1:].to(torch.uint8), C[:, 1, 1:, 1:].to(torch.uint8))
 
 
+def row_tickets(mb_h, F):
+    """The task of each of B2's work tickets, in the order blocks claim
+    them: ticket t is MB row t // F of frame t % F, so row 0 of every
+    frame comes first and all F pictures start together.  A block walks
+    its row left to right, then claims the next ticket."""
+    return [(t % F, t // F) for t in range(F * mb_h)]
+
+
+def apron_wait(mx, my, mb_w):
+    """The wait rule: how many MBs of row my - 1 (same frame) must be
+    finished before MB (mx, my) reads its above, above-right and corner
+    aprons (up to the above-right MB), or None for row 0, whose aprons
+    are outside the picture or in the complete halo.  Its left apron is
+    the MB the same block finished just before."""
+    return None if my == 0 else min(mx + 2, mb_w)
+
+
 def intra_recon(meta, yres, cres, tables, mb_w, mb_h, halo=None):
     """B2: (meta, yres, cres) -> (y, cb, cr) uint8 planes.  CPU tensors
     take the plain version; CUDA tensors launch the kernel (one launch
-    per anti-diagonal, issued by one C call).
+    per call, its blocks scheduled by ``row_tickets`` and
+    ``apron_wait``).
 
     halo = (hy uint8 [F, 16*mb_w], hc uint8 [F, 2, 8*mb_w]), the bottom
     luma row and the two bottom chroma rows of the band above, makes it
@@ -319,13 +339,18 @@ def intra_recon(meta, yres, cres, tables, mb_w, mb_h, halo=None):
         return intra_recon_plain(meta, yres, cres, tables, mb_w, mb_h, halo)
     tabs = [tables[k] for k in ("tap4", "tap8", "avail4", "avail8")]
     _build.check_cuda(meta, yres, cres, *tabs, *(halo or ()))
+    if any(t.data_ptr() % 16 for t in (meta, yres, cres, *tabs)):
+        raise ValueError("B2's inputs must start on 16-byte boundaries "
+                         "(it copies them in 16-byte chunks)")
     y = torch.empty((F, 16 * mb_h, 16 * mb_w), dtype=torch.uint8,
                     device=meta.device)
     cb = torch.empty((F, 8 * mb_h, 8 * mb_w), dtype=torch.uint8,
                      device=meta.device)
     cr = torch.empty_like(cb)
+    # ticket counter + one progress flag per (frame, MB row)
+    sched = torch.zeros(1 + F * mb_h, dtype=torch.int32, device=meta.device)
     _build.call("dt_intra_wavefront", meta, yres, cres, *tabs, y, cb, cr,
-                *(halo or (None, None)), mb_w, mb_h, F)
+                *(halo or (None, None)), sched, mb_w, mb_h, F)
     if halo is None:
         intra_recon.launches += 1
     else:

@@ -20,9 +20,9 @@ def _tiny_stream(n_pics: int = 2) -> bytes:
     """Small all-intra CABAC pictures from the repo's own encoder: 4x4
     MBs, I16/I4/PCM, one slice per MB row, in-loop filter off (the
     geometry of the ``slices_qp28`` fixture, without its oracle)."""
-    from dryv_tpu.encoder import default_sps_pps, encode_frame_annexb
-    from dryv_tpu.encoder.intra_encoder import IntraEncoder
-    from dryv_tpu.testing.fixtures import POLICIES, make_source
+    from ..encoder import default_sps_pps, encode_frame_annexb
+    from ..encoder.intra_encoder import IntraEncoder
+    from ..testing.sources import POLICIES, make_source
 
     sps, pps = default_sps_pps(4, 4, qp=28)
     out = b""
@@ -46,8 +46,8 @@ def dryrun_multichip(n_devices: int, devices=None, stream: bytes = None,
     (the original checks shapes only).  `devices` as for ``make_mesh``,
     which may repeat one device.  Raises on any difference; returns
     {"gop", "band", "frames"}."""
-    from dryv_tpu.decoder import DecodedFrame
-    from dryv_tpu.native.full import decode_annexb_native
+    from ..decoder import DecodedFrame
+    from ..native.full import decode_annexb_native
 
     from ..pipeline import frames_from_stream
 

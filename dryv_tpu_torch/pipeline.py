@@ -43,9 +43,9 @@ def _pictures(stream: bytes):
     """Yields (slice_datas, headers, sps, pps) per picture: each slice
     header parsed with its own parameter sets, and the C++ entropy
     stage's slice tuples (rbsp, bit offset, first MB, slice QP)."""
-    from dryv_tpu.avc import split_annexb
-    from dryv_tpu.avc.slice_header import SliceHeader
-    from dryv_tpu.decoder import SyntaxDecoder, group_access_units
+    from .avc import split_annexb
+    from .avc.slice_header import SliceHeader
+    from .decoder import SyntaxDecoder, group_access_units
 
     sd = SyntaxDecoder()
     rest = sd.feed_parameter_sets(list(split_annexb(stream)))
@@ -73,8 +73,8 @@ def frames_from_stream(stream: bytes, n_threads: int = 0):
     paths' input at full size.  Those reconstruct with flat scaling
     lists and without the in-loop filter, so a picture outside that
     scope, or one ``picture_supported`` rejects, raises ValueError."""
-    from dryv_tpu.coeffs import pack_from_native
-    from dryv_tpu.native.entropy import decode_picture_islices
+    from .coeffs import pack_from_native
+    from .native.entropy import decode_picture_islices
 
     frames = []
     sps = None
@@ -166,8 +166,8 @@ def reconstruct_frame(fs, ls4=None, ls8=None, deblock_pre=None,
 def _level_scales(sps, pps):
     """Per-list LevelScale tables of the active scaling lists: 3 x [6,4,4]
     (intra Y, Cb, Cr) and [6,8,8] (intra Y)."""
-    from dryv_tpu.refimpl.recon import dezigzag4, dezigzag8
-    from dryv_tpu.refimpl.transform import level_scale_4x4, level_scale_8x8
+    from .refimpl.recon import dezigzag4, dezigzag8
+    from .refimpl.transform import level_scale_4x4, level_scale_8x8
 
     sl = pps.resolve_active_scaling_lists(sps)
     ls4 = [np.asarray(level_scale_4x4(dezigzag4(sl.l4x4[i])), np.int32)
@@ -183,17 +183,17 @@ def decode_annexb_fast(stream: bytes, max_frames: int = 0,
     :83-165), custom scaling lists and the in-loop filter included.  A
     stream with a picture outside the device scope (inter, non-4:2:0,
     field, lossless, FMO, high bit depth) goes whole to the native C++
-    decoder (``dryv_tpu.native.full``), as there, and is counted in
+    decoder (the port's ``native.full``), as there, and is counted in
     ``decode_annexb_fast.host_calls``.  Returns cropped DecodedFrames."""
-    from dryv_tpu.coeffs import pack_from_native
-    from dryv_tpu.decoder import DecodedFrame
-    from dryv_tpu.native.entropy import decode_picture_islices
+    from .coeffs import pack_from_native
+    from .decoder import DecodedFrame
+    from .native.entropy import decode_picture_islices
 
     dev = resolve_device(device)
     frames = []
     for slice_datas, headers, sps, pps in _pictures(stream):
         if not all(picture_supported(sps, pps, h) for h in headers):
-            from dryv_tpu.native.full import decode_annexb_native
+            from .native.full import decode_annexb_native
             decode_annexb_fast.host_calls += 1
             return decode_annexb_native(stream, max_frames,
                                         n_threads=n_threads)
@@ -226,10 +226,10 @@ def decode_annexb_tpu(stream: bytes, max_frames: int = 0, device="cuda"):
     :227-258): the active scaling lists always feed the tables, and a
     stream the device path does not take here (non-4:2:0, field,
     lossless, or the in-loop filter on) goes to the Python scalar decoder
-    (``dryv_tpu.decoder.decode_annexb_scalar``), as there."""
-    from dryv_tpu.avc import split_annexb
-    from dryv_tpu.coeffs import pack_frame
-    from dryv_tpu.decoder import (DecodedFrame, SyntaxDecoder,
+    (the port's ``decoder.decode_annexb_scalar``), as there."""
+    from .avc import split_annexb
+    from .coeffs import pack_frame
+    from .decoder import (DecodedFrame, SyntaxDecoder,
                                   decode_annexb_scalar, group_access_units)
 
     dev = resolve_device(device)

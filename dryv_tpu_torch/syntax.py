@@ -1,4 +1,4 @@
-"""Dense per-picture syntax (``dryv_tpu.coeffs.FrameSyntax``) as the
+"""Dense per-picture syntax (``coeffs.FrameSyntax``) as the
 port's syntax tensors.
 
 ``FrameSyntax`` is what the JAX package's per-picture and sharded paths
@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dryv_tpu.coeffs import KIND_I8, KIND_PCM
+from .coeffs import KIND_I8, KIND_PCM
 
 SYNTAX_KEYS = ["kind", "qp_y", "qp_cb", "qp_cr", "i16_mode", "chroma_mode",
                "modes4", "modes8", "luma4", "luma8", "luma_dc", "chroma_dc",

@@ -1,9 +1,9 @@
 """The decoder's constant tables as device tensors.
 
 This decoder has no weights; its parameters are the normative tables.
-``decoder_tables`` turns the JAX package's numpy tables into one dict of
-tensors on the target device, so the port and the reference compute from
-the same numbers.  LevelScale arrays other than the flat defaults can be
+``decoder_tables`` turns the numpy tables of the port's copies of the JAX
+package's host layers into one dict of tensors on the target device, so
+the port and the reference compute from the same numbers.  LevelScale arrays other than the flat defaults can be
 passed in (custom scaling matrices).
 """
 from __future__ import annotations
@@ -11,12 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dryv_tpu.kernels.pred_tables import tables_4x4, tables_8x8
-from dryv_tpu.refimpl.deblock import ALPHA, BETA, TC0
-from dryv_tpu.refimpl.transform import QPC_TAB
-
 from .kernels.geometry import (BLK4_A, BLK4_B, BLK4_C, BLK8_A, BLK8_B,
                                BLK8_C, BLK8_D, LS4_FLAT, LS8_FLAT)
+from .kernels.pred_tables import tables_4x4, tables_8x8
+from .refimpl.deblock import ALPHA, BETA, TC0
+from .refimpl.transform import QPC_TAB
 
 
 def chroma_qp(qp, off, qpc_tab):

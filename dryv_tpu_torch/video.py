@@ -1,25 +1,70 @@
-"""MP4 facade of the port: ``dryv_tpu.video.Video`` demuxes, and
-decoding routes as ``Video.decode_frames(backend="jax")`` does: the
-batched GOP pipeline with stage timers, the per-picture path without."""
+"""MP4 facade of the port: demux with the port's own container layer, and
+decoding routed as ``dryv_tpu.video.Video.decode_frames(backend="jax")``
+routes it: the batched GOP pipeline with stage timers, the per-picture
+path without.  The demux (``__init__``, the info properties and
+``annexb_stream``) follows ``dryv_tpu/video.py``."""
 from __future__ import annotations
 
 import contextlib
 
-from dryv_tpu.video import Video
-
+from .avc import NalUnit, split_avcc, to_annexb
+from .container import MP4File
+from .container.atoms import VIDEO_CODECS
 from .gop_pipeline import decode_annexb_gop_pipelined
 from .pipeline import decode_annexb_fast
 
 
-class TorchVideo(Video):
+class TorchVideo:
+    def __init__(self, path):
+        self.path = str(path)
+        self.mp4 = MP4File(path)
+        self.trak = self.mp4.video_track()
+        if self.trak is None:
+            raise ValueError("no video track")
+        mdia = self.trak.mdia
+        self.mdhd = mdia.mdhd
+        self.stbl = mdia.minf(self.mp4.f).stbl
+        entry = self.stbl.stsd.entries[0]
+        self.codec = VIDEO_CODECS.get(entry.fourcc, "UNKNOWN")
+        self.avc1 = entry.codec if entry.fourcc == b"avc1" else None
+
+    @classmethod
+    def open(cls, path) -> "TorchVideo":
+        return cls(path)
+
+    def info(self) -> dict:
+        tkhd, mdhd = self.trak.tkhd, self.mdhd
+        return {
+            "codec": self.codec,
+            "width": tkhd.width if tkhd else 0,
+            "height": tkhd.height if tkhd else 0,
+            "duration_s": (mdhd.duration / mdhd.timescale
+                           if mdhd and mdhd.timescale else 0.0),
+            "rotation": (tkhd.matrix.rotation() if tkhd and tkhd.matrix
+                         else 0.0),
+            "timescale": mdhd.timescale if mdhd else 0,
+            "language": mdhd.language if mdhd else "und",
+        }
+
+    def annexb_stream(self) -> bytes:
+        """The elementary Annex-B stream: avcC parameter sets + every
+        sample's NAL units in decode order."""
+        if self.codec != "H264" or self.avc1 is None or self.avc1.avcc is None:
+            raise NotImplementedError(f"codec {self.codec}")
+        avcc = self.avc1.avcc
+        nals = [NalUnit.parse(b) for b in avcc.sps_list + avcc.pps_list]
+        for sample in self.mp4.iter_samples(self.stbl):
+            nals.extend(split_avcc(sample, avcc.nal_length_size))
+        return to_annexb(nals)
+
     def decode_frames(self, max_frames: int = 1, device="cuda",
                       timers=None):
         """Decode the first `max_frames` pictures (0 = all) on `device`,
         in display (POC) order.  With `timers` (a
-        dryv_tpu.utils.obs.StageTimers) the batched pipeline decodes the
-        whole stream and the demux and pipeline stages are accumulated
-        for --stats; without, ``pipeline.decode_annexb_fast`` decodes
-        the first `max_frames` pictures."""
+        ``utils.obs.StageTimers``) the batched pipeline decodes the whole
+        stream and the demux and pipeline stages are accumulated for
+        --stats; without, ``pipeline.decode_annexb_fast`` decodes the
+        first `max_frames` pictures."""
         stage = (timers.stage if timers is not None
                  else lambda _name: contextlib.nullcontext())
         with stage("demux"):

@@ -1,5 +1,7 @@
-"""The PyTorch port imports without jax and triton, builds nothing at
-import, and never falls back to the CPU on its own."""
+"""The PyTorch port imports without jax, triton and the JAX package
+``dryv_tpu``, decodes without them, builds nothing at import, and never
+falls back to the CPU on its own."""
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -8,23 +10,21 @@ import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-MODULES = ("dryv_tpu_torch", "dryv_tpu_torch.gop_pipeline",
-           "dryv_tpu_torch.video", "dryv_tpu_torch.cli",
-           "dryv_tpu_torch.tables", "dryv_tpu_torch.device",
-           "dryv_tpu_torch._build", "dryv_tpu_torch.kernels.geometry",
-           "dryv_tpu_torch.kernels.transform",
-           "dryv_tpu_torch.kernels.densify",
-           "dryv_tpu_torch.kernels.wavefront",
-           "dryv_tpu_torch.kernels.deblock", "dryv_tpu_torch.pipeline",
-           "dryv_tpu_torch.syntax", "dryv_tpu_torch.parallel",
-           "dryv_tpu_torch.parallel.mesh", "dryv_tpu_torch.parallel.gop",
-           "dryv_tpu_torch.parallel.bands")
+PORT = ROOT / "dryv_tpu_torch"
+# every module of the port (the host-layer copies included), by its file
+MODULES = tuple(sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts[:-1]
+             if p.name == "__init__.py" else
+             p.relative_to(ROOT).with_suffix("").parts)
+    for p in PORT.rglob("*.py")
+    if p.name != "__main__.py" and "build" not in p.relative_to(PORT).parts))
 
 
 def _run(code):
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
+    return r.stdout
 
 
 def test_import_with_jax_and_triton_blocked():
@@ -32,6 +32,70 @@ def test_import_with_jax_and_triton_blocked():
          "sys.modules['jax'] = None\n"
          "sys.modules['triton'] = None\n"
          + "".join(f"import {m}\n" for m in MODULES))
+
+
+def test_modules_cover_the_host_copies():
+    for m in ("dryv_tpu_torch.native.full", "dryv_tpu_torch.native.build",
+              "dryv_tpu_torch.cabac.syntax", "dryv_tpu_torch.decoder",
+              "dryv_tpu_torch.encoder.intra_encoder",
+              "dryv_tpu_torch.testing.sources", "dryv_tpu_torch.utils.obs",
+              "dryv_tpu_torch.kernels.pred_tables",
+              "dryv_tpu_torch.container.atoms", "dryv_tpu_torch.video"):
+        assert m in MODULES
+
+
+def _imported_roots(path):
+    """Top-level package of every absolute import in a source file."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_of_dryv_tpu(path):
+    """No module of the port, and not chip_smoke.py, imports the JAX
+    package (``dryv_tpu_torch`` is the port itself) or jax."""
+    assert not _imported_roots(path) & {"dryv_tpu", "jax", "jaxlib"}
+
+
+def test_decode_with_dryv_tpu_and_jax_blocked(tmp_path):
+    """In a process where ``dryv_tpu`` and jax cannot load, every port
+    module imports and a fixture decodes on the CPU through the batched
+    and the per-picture paths, equal to the libavcodec golden."""
+    from dryv_tpu.testing.fixtures import get_fixture
+
+    stream, golden, _, _ = get_fixture("mix_qp26")
+    (tmp_path / "s.264").write_bytes(stream)
+    _run("import sys\n"
+         "sys.modules['dryv_tpu'] = None\n"
+         "sys.modules['jax'] = None\n"
+         + "".join(f"import {m}\n" for m in MODULES)
+         + "import numpy as np\n"
+           "from dryv_tpu_torch.gop_pipeline import "
+           "decode_annexb_gop_pipelined\n"
+           "from dryv_tpu_torch.pipeline import decode_annexb_fast\n"
+           f"s = open({str(tmp_path / 's.264')!r}, 'rb').read()\n"
+           "out = {}\n"
+           "for k, fn in (('gop', decode_annexb_gop_pipelined),\n"
+           "              ('fast', decode_annexb_fast)):\n"
+           "    f, = fn(s, device='cpu')\n"
+           "    out.update({f'{k}_y': f.y, f'{k}_cb': f.cb, f'{k}_cr': f.cr})\n"
+           "assert decode_annexb_fast.host_calls == 0\n"
+           "assert decode_annexb_gop_pipelined.fallback_calls == 0\n"
+           f"np.savez({str(tmp_path / 'out.npz')!r}, **out)\n"
+           "bad = [m for m, v in sys.modules.items() if v is not None "
+           "and m.split('.')[0] in ('dryv_tpu', 'jax', 'jaxlib')]\n"
+           "assert not bad, bad\n")
+    got = np.load(tmp_path / "out.npz")
+    for k in ("gop", "fast"):
+        for plane, g in zip(("y", "cb", "cr"), golden):
+            np.testing.assert_array_equal(got[f"{k}_{plane}"], g)
 
 
 def test_import_leaves_no_jax():
@@ -74,3 +138,19 @@ def test_cpu_tensors_take_the_plain_versions():
     assert densify.launches == before
     assert _build._lib is None
     np.testing.assert_array_equal(out.numpy(), 0)
+
+
+def test_trace_device_writes_a_torch_profiler_trace(tmp_path):
+    """utils.obs.trace_device traces with torch.profiler (CPU activity
+    here) and writes a Chrome trace."""
+    import json
+
+    import torch
+
+    from dryv_tpu_torch.utils.obs import trace_device
+
+    with trace_device(str(tmp_path)) as prof:
+        torch.ones(8).add_(1)
+    assert any("add_" in e.name for e in prof.events())
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    assert trace["traceEvents"]
