@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --compare-b2 DIR   # also time an earlier B2
+    python3 chip_smoke.py --compare DIR   # also time earlier B1 and B3
 
 Builds the port's C++ host library (g++) and CUDA kernels (nvcc) from
 the sources in this checkout, and holds each kernel against its plain
 PyTorch version at the shapes its paths give it (1080p batches of 16
-pictures, and of 1 for the per-picture path's intra wavefront; one band
-of 120x17 MBs x 4 for the banded wavefront), with a tolerance of 0: the
+pictures, and of 1 for the per-picture path's intra wavefront and
+deblock; one band of 120x17 MBs x 4 for the banded wavefront; densify
+at W = 32, 96 and 256; deblock with every edge on and with random
+slices and disable_deblocking_filter_idc), with a tolerance of 0: the
 decoder is bit-exact.  Each kernel's bound is the bytes it must move
 (each input read once, each output written once) over the card's
 3.35 TB/s.  Then it drives each path of the port with the launch
@@ -26,14 +28,18 @@ frame bit-exact against the native C++ decoder or a stored golden:
   band-sharded single frame, the dry run), on one card through meshes
   that repeat it.
 
-It times the kernels, the end-to-end batched decode, the per-picture
-decode and the banded pipeline beside the unbanded wavefront.  With
---compare-b2 DIR (a directory holding an earlier ``intra_wavefront.cu``
-and the ``common.cuh`` it includes, not part of the repo) it also builds
-that B2 and times it and the current one in turns (old, new, new, old)
-at each shape.  Any failure ends the run with a non-zero exit and no
-result line.  The last line is {"ok": true, "device": {...}}; the line
-before it holds the per-kernel JSON.
+It times the kernels, the end-to-end batched decode, the device span of
+a batch of 16 deblocked pictures, the per-picture decode and the banded
+pipeline beside the unbanded wavefront; a torch.profiler trace counts
+the device kernels of one B2 and one B3 call.  With --compare DIR (a
+directory holding an earlier tree's ``densify.cu`` and ``deblock.cu``
+with the ``common.cuh`` they include, not part of the repo; their C
+entries as they were before B3 took a scratch argument) it also builds
+those kernels and times them and the current ones in turns (old, new,
+new, old) at each shape.  Every timing line ends with the card's
+``nvidia-smi`` name and power limit.  Any failure ends the run with a
+non-zero exit and no result line.  The last line is {"ok": true,
+"device": {...}}; the line before it holds the per-kernel JSON.
 """
 from __future__ import annotations
 
@@ -164,51 +170,68 @@ def bound_ms(*tensors):
         / HBM_BYTES_PER_S * 1e3
 
 
-def old_b2_caller(src_dir):
-    """Builds the B2 of an earlier tree (``src_dir/intra_wavefront.cu``,
-    whose C entry takes no scratch) and returns a function with
-    ``intra_recon``'s arguments that launches it."""
+# The C entries of the earlier kernels --compare builds: name, argument
+# kinds ("p" pointer, "i" int; the stream follows), as the tree before
+# this B3 had them.
+OLD_ENTRIES = {"densify.cu": ("dt_densify", "pppii"),
+               "deblock.cu": ("dt_deblock", "ppppiii")}
+
+
+def old_kernels(src_dir):
+    """Builds B1 and B3 of an earlier tree (``src_dir/densify.cu`` and
+    ``deblock.cu``, each with the ``common.cuh`` beside it) into one
+    library and returns {"densify": fn, "deblock": fn} with the current
+    wrappers' arguments and results."""
     from pathlib import Path
 
     from dryv_tpu_torch import _build
     from dryv_tpu_torch._libbuild import build_library, library_path
 
-    src = Path(src_dir).resolve() / "intra_wavefront.cu"
-    lib_path = library_path("libold_b2", [src, src.with_name("common.cuh")],
+    d = Path(src_dir).resolve()
+    srcs = [d / name for name in OLD_ENTRIES]
+    lib_path = library_path("libold_kernels", srcs + [d / "common.cuh"],
                             " ".join(_build.NVCC_FLAGS).encode())
     nvcc = _build._nvcc()
-    build_library(lib_path, [src],
+    build_library(lib_path, srcs,
                   lambda s, o: [nvcc, *_build.NVCC_FLAGS, "-c", str(s),
                                 "-o", str(o)],
                   lambda objs, out: [nvcc, "-shared", *map(str, objs),
                                      "-o", str(out)])
-    fn = ctypes.CDLL(str(lib_path)).dt_intra_wavefront
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+    lib = ctypes.CDLL(str(lib_path))
+    fns = {}
+    for entry, kinds in OLD_ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
+                       for k in kinds] + [ctypes.c_void_p]
+        fns[entry] = fn
 
-    def call(meta, yres, cres, tables, mb_w, mb_h, halo=None):
-        F = meta.shape[0]
-        dev = meta.device
-        y = torch.empty((F, 16 * mb_h, 16 * mb_w), dtype=torch.uint8,
-                        device=dev)
-        cb = torch.empty((F, 8 * mb_h, 8 * mb_w), dtype=torch.uint8,
-                         device=dev)
-        cr = torch.empty_like(cb)
-        ptrs = [meta, yres, cres] + [tables[k] for k in
-                                     ("tap4", "tap8", "avail4", "avail8")] \
-            + [y, cb, cr, *(halo or (None, None))]
-        rc = fn(*[None if t is None else t.data_ptr() for t in ptrs],
-                mb_w, mb_h, F, torch.cuda.current_stream().cuda_stream)
+    def run(entry, *args):
+        rc = fns[entry](*[a.data_ptr() if torch.is_tensor(a) else a
+                          for a in args],
+                        torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"earlier B2: CUDA error {rc}")
+            fail(f"earlier {entry}: CUDA error {rc}")
+
+    def densify(bmp, vals):
+        F, npad, _ = bmp.shape
+        out = torch.empty((F, npad, 408), dtype=torch.int16,
+                          device=bmp.device)
+        run("dt_densify", bmp, vals, out, F * npad, vals.shape[-1])
+        return out
+
+    def deblock(prm, y, cb, cr, mb_w, mb_h):
+        run("dt_deblock", prm, y, cb, cr, mb_w, mb_h, y.shape[0])
         return y, cb, cr
-    return call
+
+    return {"densify": densify, "deblock": deblock}
 
 
-def kernel_launches_in_profile(fn, name):
-    """Device kernels whose name holds `name` in a torch.profiler trace
-    of one fn() call; None when the profiler records no device time."""
+def kernel_launches_in_profile(fn, names):
+    """For each of `names`, the device kernels whose name holds it in a
+    torch.profiler trace of one fn() call; None when the profiler
+    records no device time.  (One session per process: a second one
+    records no device events.)"""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -220,14 +243,14 @@ def kernel_launches_in_profile(fn, name):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not evs:
         return None
-    return sum(1 for e in evs if name in e.name)
+    return {n: sum(1 for e in evs if n in e.name) for n in names}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--compare-b2", metavar="DIR",
-                    help="time an earlier B2 (DIR/intra_wavefront.cu) in "
-                         "turns with the current one")
+    ap.add_argument("--compare", metavar="DIR",
+                    help="time earlier B1 and B3 (DIR/densify.cu, "
+                         "DIR/deblock.cu) in turns with the current ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -237,7 +260,7 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    from dryv_tpu_torch import _build, parallel
+    from dryv_tpu_torch import _build, gop_pipeline, parallel
     from dryv_tpu_torch.decoder import DecodedFrame
     from dryv_tpu_torch.gop_pipeline import (PackedGopDecoder,
                                              decode_annexb_gop_pipelined)
@@ -267,16 +290,29 @@ def main():
     t0 = time.perf_counter()
     print(f"host library: {host_build.build(force=True).name}")
     print(f"build: C++ host library {time.perf_counter() - t0:.2f} s "
-          f"(g++, one process per source)")
+          f"(g++, one process per source)  [{card}]")
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.lib()
     print(f"build: CUDA kernels {time.perf_counter() - t0:.2f} s "
-          f"(nvcc, sm_90a, one process per source)")
+          f"(nvcc, sm_90a, one process per source)  [{card}]")
+    old = None
+    if args.compare:
+        t0 = time.perf_counter()
+        old = old_kernels(args.compare)
+        print(f"build: earlier B1 and B3 from {args.compare} "
+              f"{time.perf_counter() - t0:.2f} s  [{card}]")
 
     tables = decoder_tables(dev)
     rng = np.random.default_rng(2024)
     kernels = {}
+
+    def report(label, err, ms, plain_ms, bound):
+        print(f"kernel {label}: max_abs_err {err} kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms bound {bound:.4f} ms "
+              f"({bound / ms:.2%} of it)  [{card}]")
+        if err != 0:
+            fail(f"{label} differs from its plain version (max {err})")
 
     def record(key, route_src, replaces, err, ms, plain_ms, bound):
         kernels[key] = {"name": key, "route": "cuda", "source": route_src,
@@ -284,19 +320,24 @@ def main():
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": "bytes",
                         "library_ms": None}
-        print(f"kernel {key}: max_abs_err {err} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms bound {bound:.4f} ms "
-              f"({bound / ms:.2%} of it)  [{card}]")
-        if err != 0:
-            fail(f"{key} differs from its plain version (max {err})")
+        report(key, err, ms, plain_ms, bound)
 
     def max_err(got, want):
         return max(int((a.int() - b.int()).abs().max())
                    for a, b in zip(got, want))
 
-    # ---- phase 3: each kernel against its plain version, 1080p x 16 ----
+    def in_turns(label, what, time_old, time_new, reps):
+        """Earlier and current kernel timed old, new, new, old."""
+        t = [f() for f in (time_old, time_new, time_new, time_old)]
+        print(f"{label}, CUDA events, mean of {reps}, in turns: earlier "
+              f"{what} {t[0]:.4f} / {t[3]:.4f} ms, this {what} {t[1]:.4f} "
+              f"/ {t[2]:.4f} ms; bit-exact to each other  [{card}]")
+
+    # ---- phase 3: each kernel against its plain version ---------------
+    # B1 at the wire's shape (16 pictures x 8192 MB rows) at three value
+    # strides, each with rows of 0, W, W + 1 and 408 values
     npad = 8192
-    for W in (32, 96):
+    for W in (32, 96, 256):
         counts = rng.integers(0, 409, (F, npad, 1))
         counts[:, :4, 0] = [0, W, W + 1, 408]
         bits = rng.random((F, npad, 408)) * 408 < counts
@@ -305,18 +346,22 @@ def main():
         vals = torch.from_numpy(rng.integers(-127, 128, (F, npad, W))
                                 .astype(np.int8)).to(dev)
         out_k = densify(bmp, vals)
-        out_p = densify_plain(bmp, vals)
-        err = int((out_k.int() - out_p.int()).abs().max())
+        err = int((out_k.int() - densify_plain(bmp, vals).int()).abs().max())
+        ms = cuda_ms(lambda: densify(bmp, vals), 20)
+        plain = cuda_ms(lambda: densify_plain(bmp, vals), 5)
+        bound = bound_ms(bmp, vals, out_k)
         if W == 96:
             record("densify", "dryv_tpu_torch/csrc/densify.cu",
-                   "dryv_tpu/kernels/densify.py:38", err,
-                   cuda_ms(lambda: densify(bmp, vals), 20),
-                   cuda_ms(lambda: densify_plain(bmp, vals), 5),
-                   bound_ms(bmp, vals, out_k))
-        elif err:
-            fail(f"densify W={W} differs (max {err})")
-        print(f"densify bmp [{F}, {npad}, 51] vals [{F}, {npad}, {W}]: "
-              f"bit-exact")
+                   "dryv_tpu/kernels/densify.py:38", err, ms, plain, bound)
+        else:
+            report(f"densify at W = {W}", err, ms, plain, bound)
+        if old:
+            if not torch.equal(old["densify"](bmp, vals), out_k):
+                fail(f"densify W={W}: the earlier B1 and the current differ")
+            in_turns(f"densify bmp [{F}, {npad}, 51] vals [{F}, {npad}, "
+                     f"{W}]", "B1",
+                     lambda: cuda_ms(lambda: old["densify"](bmp, vals), 20),
+                     lambda: cuda_ms(lambda: densify(bmp, vals), 20), 20)
 
     # B2 at the batched path's shape (F = 16) and the per-picture path's
     # (F = 1); B2b at one band of 17 MB rows x 4 pictures below another
@@ -330,6 +375,7 @@ def main():
         np.stack([gold["cb"][8 * BR - 1], gold["cr"][8 * BR - 1]]),
         (FB, 2, 8 * MB_W)))).to(dev)
     b2_cases = {}
+    recon = {}
     for key, rows, nf, halo in (("intra_wavefront", MB_H, F, None),
                                 ("intra_wavefront_f1", MB_H, 1, None),
                                 ("intra_wavefront_banded", BR, FB,
@@ -339,7 +385,7 @@ def main():
         s = {k: torch.from_numpy(v).to(dev) for k, v in s_np.items()}
         inputs = recon_inputs(s, torch.from_numpy(yz_np).to(dev),
                               torch.from_numpy(c_np).to(dev))
-        b2_cases[key] = (inputs, rows, halo, s)
+        b2_cases[key] = (inputs, rows, halo)
         got = intra_recon(*inputs, tables, MB_W, rows, halo=halo)
         want = intra_recon_plain(*inputs, tables, MB_W, rows, halo)
         err = max_err(got, want)
@@ -348,35 +394,20 @@ def main():
                                halo=(hy * 0, hc * 0))
             if all(torch.equal(a, b) for a, b in zip(got, zero)):
                 fail("intra_wavefront_banded: the halo changed no sample")
+        else:
+            recon[nf] = (s["kind"], got)
         ms = cuda_ms(lambda: intra_recon(*inputs, tables, MB_W, rows,
                                          halo=halo), 10)
         plain = cuda_ms(lambda: intra_recon_plain(*inputs, tables, MB_W,
                                                   rows, halo), 2)
         bound = bound_ms(*inputs, *got, *(halo or ()))
         if key == "intra_wavefront_f1":
-            print(f"kernel intra_wavefront at F = 1 (the per-picture "
-                  f"path's shape): max_abs_err {err} kernel {ms:.4f} ms "
-                  f"plain {plain:.4f} ms bound {bound:.4f} ms "
-                  f"({bound / ms:.2%} of it)  [{card}]")
-            if err:
-                fail(f"intra_wavefront at F = 1 differs (max {err})")
+            report("intra_wavefront at F = 1 (the per-picture path's "
+                   "shape)", err, ms, plain, bound)
         else:
             record(key, "dryv_tpu_torch/csrc/intra_wavefront.cu",
                    "dryv_tpu/kernels/pallas_wavefront.py:140", err, ms,
                    plain, bound)
-        if key == "intra_wavefront":
-            rk = got
-    # one B2 call is one launch on the device (one profiler session: a
-    # second session in the process records no device events)
-    n_prof = kernel_launches_in_profile(
-        lambda: [intra_recon(*inputs, tables, MB_W, rows, halo=halo)
-                 for inputs, rows, halo, _ in b2_cases.values()],
-        "intra_rows_kernel")
-    print(f"device kernels named intra_rows_kernel in a torch.profiler "
-          f"trace of {len(b2_cases)} B2 calls ({', '.join(b2_cases)}): "
-          f"{'not measured' if n_prof is None else n_prof}")
-    if n_prof is not None and n_prof != len(b2_cases):
-        fail(f"{len(b2_cases)} B2 calls launched {n_prof} B2 kernels")
 
     # where B2's time goes: the same F = 1 picture with every MB of one
     # kind (PCM predicts nothing, so its time is the schedule's: flag
@@ -398,57 +429,140 @@ def main():
           + ", ".join(f"{k} {v:.4f} ms" for k, v in by_kind.items())
           + f"  [{card}]")
 
-    if args.compare_b2:
-        old = old_b2_caller(args.compare_b2)
-        for key, (inputs, rows, halo, _) in b2_cases.items():
-            got_old = old(*inputs, tables, MB_W, rows, halo)
-            got_new = intra_recon(*inputs, tables, MB_W, rows, halo=halo)
-            if max_err(got_old, got_new):
-                fail(f"{key}: the earlier B2 and the current differ")
-            t = [cuda_ms(lambda fn=fn: fn(*inputs, tables, MB_W, rows,
-                                           halo=halo), 10)
-                 for fn in (old, intra_recon, intra_recon, old)]
-            print(f"{key} ({MB_W}x{rows} MBs x {inputs[0].shape[0]}), "
-                  f"CUDA events, mean of 10, in turns: earlier B2 "
-                  f"{t[0]:.4f} / {t[3]:.4f} ms, this B2 {t[1]:.4f} / "
-                  f"{t[2]:.4f} ms; bit-exact to each other  [{card}]")
-
-    s = b2_cases["intra_wavefront"][3]
-
+    # B3 on B2's planes at F = 16 (batched path) and F = 1 (per-picture
+    # path), with two parameter sets: every edge on (one slice, random
+    # QPs and filter offsets), and sorted random slice ids with a random
+    # disable_deblocking_filter_idc 0/1/2 per MB (slice edges with bS 0,
+    # whole MBs left unfiltered)
     n = MB_W * MB_H
-    qp = torch.from_numpy(rng.integers(10, 52, (F, n))).to(dev)
-    zeros = torch.zeros((F, n), dtype=torch.int32, device=dev)
-    offs = torch.from_numpy(2 * rng.integers(-3, 4, (F, 1))
-                            .repeat(n, 1)).to(dev)
-    pre = deblock_precompute_intra(s["kind"], qp, zeros, zeros, offs, -offs,
-                                   MB_W, MB_H, 1, -2, tables)
-    prm = pack_params(pre)
-    planes = [p.clone() for p in rk]
-    dk = deblock(prm, *[p.clone() for p in planes], MB_W, MB_H)
-    dp = deblock_plain(prm, *planes, MB_W, MB_H)
-    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(dk, dp))
-    changed = int((dk[0] != planes[0]).sum())
-    print(f"deblock changed {changed} luma samples")
-    if changed == 0:
-        fail("deblock check filtered nothing")
 
-    def deblock_fresh(reps):
+    def b3_params(kind, slices):
+        nf = kind.shape[0]
+        qp = torch.from_numpy(rng.integers(10, 52, (nf, n))).to(dev)
+        offs = torch.from_numpy(2 * rng.integers(-3, 4, (nf, 1))
+                                .repeat(n, 1)).to(dev)
+        if slices:
+            sid = torch.from_numpy(np.sort(rng.integers(0, 9, (nf, n)),
+                                           axis=1)).to(dev)
+            dis = torch.from_numpy(rng.integers(0, 3, (nf, n))).to(dev)
+        else:
+            sid = dis = torch.zeros((nf, n), dtype=torch.int32, device=dev)
+        return pack_params(deblock_precompute_intra(
+            kind, qp, sid, dis, offs, -offs, MB_W, MB_H, 1, -2, tables))
+
+    def fresh_ms(fn, prm, planes, reps=10, geom=(MB_W, MB_H)):
+        """Mean device ms of fn(prm, *planes, *geom) on fresh copies of
+        the planes (B3 filters in place), by CUDA events around each
+        call."""
         tot = 0.0
         for i in range(reps + 1):
             ps = [p.clone() for p in planes]
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            deblock(prm, *ps, MB_W, MB_H)
+            fn(prm, *ps, *geom)
             b.record()
             torch.cuda.synchronize()
             tot += a.elapsed_time(b) if i else 0.0
         return tot / reps
 
-    record("deblock", "dryv_tpu_torch/csrc/deblock.cu",
-           "dryv_tpu/kernels/pallas_deblock.py:93", err, deblock_fresh(10),
-           cuda_ms(lambda: deblock_plain(prm, *planes, MB_W, MB_H), 2),
-           bound_ms(prm, *planes, *dk))
+    b3_cases = {}
+    for key, nf in (("deblock", F), ("deblock_f1", 1)):
+        kind, planes = recon[nf]
+        for slices in (False, True):
+            prm = b3_params(kind, slices)
+            dk = deblock(prm, *[p.clone() for p in planes], MB_W, MB_H)
+            dp = deblock_plain(prm, *planes, MB_W, MB_H)
+            err = max_err(dk, dp)
+            changed = [int((a != b).sum()) for a, b in zip(dk, planes)]
+            if min(changed) == 0:
+                fail(f"{key}: the check filtered nothing in a plane")
+            ms = fresh_ms(deblock, prm, planes)
+            if not slices:
+                b3_cases[key] = (prm, planes)
+                record(key, "dryv_tpu_torch/csrc/deblock.cu",
+                       "dryv_tpu/kernels/pallas_deblock.py:93", err, ms,
+                       cuda_ms(lambda: deblock_plain(prm, *planes, MB_W,
+                                                     MB_H), 2),
+                       bound_ms(prm, *planes, *dk))
+            else:
+                print(f"kernel {key} (F = {nf}) with random slices and "
+                      f"idc 0/1/2: max_abs_err {err}, changed "
+                      f"{changed} samples (y, cb, cr), kernel {ms:.4f} ms"
+                      f"  [{card}]")
+                if err:
+                    fail(f"{key} with random slices differs (max {err})")
+        if old:
+            prm, planes = b3_cases[key]
+            if max_err(old["deblock"](prm, *[p.clone() for p in planes],
+                                      MB_W, MB_H),
+                       deblock(prm, *[p.clone() for p in planes], MB_W,
+                               MB_H)):
+                fail(f"{key}: the earlier B3 and the current differ")
+            in_turns(f"{key} ({MB_W}x{MB_H} MBs x {nf})", "B3",
+                     lambda: fresh_ms(old["deblock"], prm, planes),
+                     lambda: fresh_ms(deblock, prm, planes), 10)
+
+    # where B3's time goes: the F = 1 picture with the bS of some edge
+    # directions set to 0 (no edge filtered: the schedule, loads and
+    # stores alone)
+    prm1, planes1 = b3_cases["deblock_f1"]
+    by_dir = {}
+    for label, cols in (("no edge", (0, 40, 80, 136)),
+                        ("vertical only", (40, 136)),
+                        ("horizontal only", (0, 80)), ("every edge", ())):
+        prm_d = prm1.clone()
+        for c0 in cols:
+            prm_d[..., c0:c0 + 16] = 0
+        err = max_err(deblock(prm_d, *[p.clone() for p in planes1], MB_W,
+                              MB_H),
+                      deblock_plain(prm_d, *planes1, MB_W, MB_H))
+        if err:
+            fail(f"deblock_f1 with {label} on: differs (max {err})")
+        by_dir[label] = fresh_ms(deblock, prm_d, planes1)
+    print(f"deblock at F = 1 with the bS of some edges set to 0, "
+          f"bit-exact, CUDA events, mean of 10: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in by_dir.items())
+          + f"  [{card}]")
+    # the two chains of the schedule apart: MB row 0 alone (120 MB steps
+    # of one walker, no waits) and MB column 0 alone (68 rows, each
+    # waiting on the one above), every edge on and none
+    y1, cb1, cr1 = planes1
+    for label, gw, gh, prm_g, pl_g in (
+            ("one MB row (120x1)", MB_W, 1, prm1[:, :MB_W],
+             (y1[:, :16], cb1[:, :8], cr1[:, :8])),
+            ("one MB column (1x68)", 1, MB_H, prm1[:, ::MB_W],
+             (y1[..., :16], cb1[..., :8], cr1[..., :8]))):
+        prm_g = prm_g.contiguous()
+        pl_g = [p.contiguous() for p in pl_g]
+        prm_0 = prm_g.clone()
+        for c0 in (0, 40, 80, 136):
+            prm_0[..., c0:c0 + 16] = 0
+        t = []
+        for pr in (prm_g, prm_0):
+            err = max_err(deblock(pr, *[p.clone() for p in pl_g], gw, gh),
+                          deblock_plain(pr, *pl_g, gw, gh))
+            if err:
+                fail(f"deblock on {label} differs (max {err})")
+            t.append(fresh_ms(deblock, pr, pl_g, geom=(gw, gh)))
+        print(f"deblock at F = 1 on {label}, bit-exact, CUDA events, mean "
+              f"of 10: every edge {t[0]:.4f} ms, no edge {t[1]:.4f} ms  "
+              f"[{card}]")
+
+    # one B2 or B3 call is one launch on the device
+    names = ("intra_rows_kernel", "deblock_rows_kernel")
+    n_prof = kernel_launches_in_profile(
+        lambda: ([intra_recon(*inputs, tables, MB_W, rows, halo=halo)
+                  for inputs, rows, halo in b2_cases.values()],
+                 [deblock(prm, *[p.clone() for p in planes], MB_W, MB_H)
+                  for prm, planes in b3_cases.values()]), names)
+    print(f"device kernels in a torch.profiler trace of {len(b2_cases)} B2 "
+          f"calls ({', '.join(b2_cases)}) and {len(b3_cases)} B3 calls "
+          f"({', '.join(b3_cases)}): "
+          f"{'not measured' if n_prof is None else n_prof}")
+    if n_prof is not None and (n_prof[names[0]] != len(b2_cases)
+                               or n_prof[names[1]] != len(b3_cases)):
+        fail("a B2 or B3 call launched other than one kernel")
 
     # ---- phases 4-6: the main path, bit-exact, counted ----------------
     nthreads = os.cpu_count() or 1
@@ -497,15 +611,16 @@ def main():
         print(f"{label}: {len(got)}/{len(ref)} frames bit-exact vs "
               f"{against}")
 
-    def need(path, c, keys, report=()):
+    def need(path, c, keys, report=None):
         """Fail unless every kernel in keys launched on the path; the
-        kernels in report take their launch count from this path."""
+        kernel lines in `report` (line -> counter) take their launch
+        count from this path."""
         print(f"launches on the {path}: {c}")
         for k in keys:
             if c[k] <= 0:
                 fail(f"kernel {k} never launched on the {path}")
-        for k in report:
-            kernels[k]["launches"] = c[k]
+        for line, k in (report or {}).items():
+            kernels[line]["launches"] = c[k]
 
     reset_counts()
     for (label, stream, against), ref in zip(checks, refs):
@@ -513,7 +628,7 @@ def main():
             stream, gop=F, n_threads=nthreads, device=dev), ref, against)
     c = counts()
     need("main path", c, ("densify", "intra_wavefront", "deblock"),
-         report=("densify", "intra_wavefront", "deblock"))
+         report={k: k for k in ("densify", "intra_wavefront", "deblock")})
     if c["fallback_calls"] != 0:
         fail("the main path left the batched scope")
 
@@ -543,7 +658,8 @@ def main():
           f"n_threads={nthreads}): median {med:.2f} fps, min {min(fps):.2f}"
           f", max {max(fps):.2f} over {REPS} runs  [{card}]")
     print(f"e2e stage ms/frame (last run): {json.dumps(stage_ms)}; "
-          f"stage sum / wall: median {statistics.median(ratios):.3f}")
+          f"stage sum / wall: median {statistics.median(ratios):.3f}  "
+          f"[{card}]")
     tm = StageTimers()
     t0 = time.perf_counter()
     host = decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
@@ -552,31 +668,82 @@ def main():
     print(f"e2e host-frame output: {len(host) / wall:.2f} fps, stage sum "
           f"/ wall {sum(tm.t.values()) / wall:.3f}  [{card}]")
 
-    # device span of each batch's PackedGopDecoder.forward, by CUDA events
-    # recorded around it (nothing synchronises inside the run)
-    spans = []
-    forward = PackedGopDecoder.forward
+    def forward_spans(stream):
+        """Decode `stream` through the batched pipeline (stacked device
+        output) with CUDA events recorded around each batch's
+        PackedGopDecoder.forward (nothing synchronises inside the run);
+        returns (output, device ms per batch, wall s)."""
+        spans = []
+        forward = PackedGopDecoder.forward
 
-    def timed_forward(self, *args):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = forward(self, *args)
-        e1.record()
-        spans.append((e0, e1))
-        return out
+        def timed_forward(self, *args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = forward(self, *args)
+            e1.record()
+            spans.append((e0, e1))
+            return out
 
-    PackedGopDecoder.forward = timed_forward
-    t0 = time.perf_counter()
-    decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads, device=dev,
-                                stacked_out=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    PackedGopDecoder.forward = forward
-    busy = sum(a.elapsed_time(b) for a, b in spans)
+        PackedGopDecoder.forward = timed_forward
+        try:
+            t0 = time.perf_counter()
+            out = decode_annexb_gop_pipelined(stream, gop=F,
+                                              n_threads=nthreads, device=dev,
+                                              stacked_out=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            PackedGopDecoder.forward = forward
+        return out, [a.elapsed_time(b) for a, b in spans], wall
+
+    _, spans, wall = forward_spans(big)
+    busy = sum(spans)
     print(f"device span of the batch stage: {busy / len(spans):.3f} ms per "
           f"batch of {F}, {busy / 1e3 / wall:.4f} of the {wall:.3f} s wall "
           f"[{card}]")
+
+    # one batch of 16 deblocked pictures: bench1080p_dblk.264 x 16, so
+    # that B3 runs at the batched path's shape on a real picture
+    dblk = open("benchdata/bench1080p_dblk.264", "rb").read() * F
+    gd = np.load("benchdata/bench1080p_dblk_golden.npz")
+    want = [torch.from_numpy(gd[k]).to(dev) for k in ("y", "cb", "cr")]
+
+    def dblk_batch(b3):
+        """Device ms of the deblocked batch with `b3` as the pipeline's
+        deblock; every frame checked against the golden."""
+        gop_pipeline.deblock = b3
+        try:
+            out, sp, _ = forward_spans(dblk)
+        finally:
+            gop_pipeline.deblock = deblock
+        if len(out) != 1 or out[0][3] != F:
+            fail("bench1080p_dblk x 16 did not decode as one batch of 16")
+        y, cb, cr, _ = out[0]
+        for got, w in zip((y, cb, cr), want):
+            if not torch.equal(got[:, :w.shape[0], :w.shape[1]],
+                               w.expand(F, *w.shape)):
+                fail("deblocked batch differs from "
+                     "bench1080p_dblk_golden.npz")
+        return sp[0]
+
+    reset_counts()
+    dspans = [dblk_batch(deblock) for _ in range(3)]
+    c = counts()
+    print(f"device span of one batch of {F} deblocked pictures "
+          f"(bench1080p_dblk.264 x {F}, every frame bit-exact vs "
+          f"bench1080p_dblk_golden.npz), CUDA events, 3 runs: "
+          f"{', '.join(f'{v:.3f}' for v in dspans)} ms; launches {c}  "
+          f"[{card}]")
+    if c["deblock"] != 3 or c["fallback_calls"]:
+        fail("the deblocked batch did not run B3 once per batch")
+    if old:
+        t = [statistics.mean(dblk_batch(b3) for _ in range(3))
+             for b3 in (old["deblock"], deblock, deblock, old["deblock"])]
+        print(f"device span of the deblocked batch, mean of 3 runs, in "
+              f"turns: earlier B3 "
+              f"{t[0]:.3f} / {t[3]:.3f} ms, this B3 {t[1]:.3f} / "
+              f"{t[2]:.3f} ms; every frame bit-exact  [{card}]")
 
     # ---- phase 8: the per-picture path (CAVLC, scaling matrices) -------
     pp_checks = []
@@ -598,7 +765,8 @@ def main():
         check_frames(label, decode_annexb_fast(stream, n_threads=nthreads,
                                                device=dev), ref, against)
     c = counts()
-    need("per-picture path", c, ("intra_wavefront", "deblock"))
+    need("per-picture path", c, ("intra_wavefront", "deblock"),
+         report={"deblock_f1": "deblock"})
     if c["host_calls"] != 0:
         fail("the per-picture path sent a stream to the host decoder")
 
@@ -654,7 +822,7 @@ def main():
                               n_threads=nthreads)
     need("sharded paths", counts(),
          ("intra_wavefront", "intra_wavefront_banded"),
-         report=("intra_wavefront_banded",))
+         report={"intra_wavefront_banded": "intra_wavefront_banded"})
 
     # device span of stage A + wavefront over the 16 pictures, syntax
     # already on the card: banded pipeline (4 bands on one card) beside

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 ENTRIES = {
     "dt_densify": "pppii",
     "dt_intra_wavefront": "pppppppppppppiii",
-    "dt_deblock": "ppppiii",
+    "dt_deblock": "pppppiii",
 }
 
 _lib = None

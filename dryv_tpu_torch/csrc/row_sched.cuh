@@ -14,14 +14,17 @@
 // one block per task.
 //
 // Scratch (int32, zeroed by the caller before the launch, allocated by
-// the wrapper): sched[0] is the ticket counter, sched[1 + f * rows + y]
-// the flag of row y of frame f.  The Python mirror of the ticket order
-// and the wait rule is dryv_tpu_torch/kernels/wavefront.py (row_tickets,
-// apron_wait); the CPU tests simulate it.
+// the wrapper): sched[0] is the ticket counter, then one flag per task
+// row (B2: row y of frame f at sched[1 + f * rows + y]; B3 keeps one such
+// array for luma and one for chroma).  The Python mirror of the ticket
+// orders and the wait rule is dryv_tpu_torch/kernels/wavefront.py
+// (row_tickets, apron_wait) and kernels/deblock.py (deblock_tickets); the
+// CPU tests simulate them.
 //
-// Memory order: the flag store is a release at GPU scope, after a
-// __syncthreads and a __threadfence that order every thread's sample
-// writes before it; the wait is an acquire load.  L1 is not coherent
+// Memory order: the flag store is a release at GPU scope, after a block
+// (or warp) barrier that orders every thread's sample writes before it
+// (B2 adds a __threadfence; B3 relies on the release being cumulative);
+// the wait is an acquire load.  L1 is not coherent
 // across SMs, so a block reads samples that another block wrote in this
 // launch with __ldcg (L2), never with cached loads.
 #pragma once
@@ -76,6 +79,14 @@ __device__ __forceinline__ int claim_ticket(int* counter, int* slot) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+// 8-byte asynchronous copy global -> shared (cp.async.ca: only for
+// bytes that no block changes in this launch before they are read).
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
                :: "r"(s), "l"(gmem) : "memory");
 }
 

@@ -10,13 +10,18 @@ boundary strength, alpha, beta and tC0 per edge depend only on syntax.
 Kernel B3 (``csrc/deblock.cu``) replaces the Pallas kernel
 ``_build_db_kernel`` behind ``make_deblock_pallas``
 (``dryv_tpu/kernels/pallas_deblock.py``).  It filters the finished recon
-planes in place, one launch per anti-diagonal d = x + 2y: filtering MB
-(x, y) changes its own samples, the left MB's columns 13..15 and the
-above MB's rows 13..15, and reads the above MB's corner columns that
-(x+1, y-1) filtered one diagonal earlier.  Two MBs of one diagonal never
-touch the same sample, so the diagonal order gives the spec's MB-raster
-result.  Intra prediction reads unfiltered samples, so B3 runs only
-after all of B2.
+planes in place.  Filtering MB (x, y) changes its own samples, the left
+MB's columns 13..15 and the above MB's rows 13..15 (chroma: 7), and reads
+the above MB's bottom rows, whose columns 13..15 (x+1, y-1) filters: the
+dependency shape of intra prediction.  So B3 is one persistent launch of
+MB-row walkers like B2: its tickets (``deblock_tickets``) are (frame, MB
+row, luma or chroma), and an MB waits until the row above in its frame
+and part has finished ``apron_wait(x, y, mb_w)`` MBs.  Intra prediction
+reads unfiltered samples, so B3 runs only after all of B2.
+
+The plain version runs the same per-MB step (``filter_mbs``) over the
+anti-diagonals d = x + 2y, whose MBs never touch a common sample; the
+CPU tests replay the kernel's schedule through ``filter_mbs`` too.
 """
 from __future__ import annotations
 
@@ -27,8 +32,10 @@ from ..coeffs import KIND_I8, KIND_PCM
 from .. import _build
 from ..tables import chroma_qp
 from .geometry import PRE_KEYS, diag_schedule
+from .wavefront import row_tickets
 
 PRM_BYTES = 192
+PARTS = ("luma", "chroma")
 
 
 def deblock_precompute_intra(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h,
@@ -193,94 +200,137 @@ def _edges(win, n_edges, first, step, filt, params):
             win[..., c + k] = v
 
 
-def deblock_plain(prm, y, cb, cr, mb_w, mb_h):
-    """Plain PyTorch version of B3; returns filtered copies of the
-    planes.  prm u8 [F, n, 192] from ``pack_params``."""
-    F = y.shape[0]
-    dev = y.device
-    H, Wd = 16 * mb_h, 16 * mb_w
-    # pad 4 rows/cols on top/left so every window is in bounds; edges
-    # there have bS 0 and leave the pad as it is
-    Y = torch.zeros((F, H + 4, Wd + 4), dtype=torch.int32, device=dev)
+def pad_planes(y, cb, cr):
+    """int32 copies of the planes with 4 (chroma: 2) rows and columns of
+    zeros above and to the left, so every MB's window is in bounds (the
+    edges there have bS 0 and leave the pad as it is): Y [F, H+4, W+4]
+    and C [F, 2, H/2+2, W/2+2]."""
+    F, H, Wd = y.shape
+    Y = torch.zeros((F, H + 4, Wd + 4), dtype=torch.int32, device=y.device)
     Y[:, 4:, 4:] = y
     C = torch.zeros((F, 2, H // 2 + 2, Wd // 2 + 2), dtype=torch.int32,
-                    device=dev)
+                    device=y.device)
     C[:, 0, 2:, 2:] = cb
     C[:, 1, 2:, 2:] = cr
-    sched = diag_schedule(mb_w, mb_h)[0]
-    i20 = torch.arange(20, device=dev)
-    i10 = torch.arange(10, device=dev)
-    for row in sched:
-        addrs = torch.as_tensor(row[row >= 0], dtype=torch.long, device=dev)
-        K = addrs.numel()
-        f = torch.arange(F, device=dev).repeat_interleave(K)
-        a = addrs.repeat(F)
-        M = F * K
-        P = prm[f, a].to(torch.int32)
-        bsv, tc0v = P[:, 0:16].view(M, 4, 4), P[:, 16:32].view(M, 4, 4)
-        av, bv = P[:, 32:36], P[:, 36:40]
-        bsh, tc0h = P[:, 40:56].view(M, 4, 4), P[:, 56:72].view(M, 4, 4)
-        ah, bh = P[:, 72:76], P[:, 76:80]
-        bscv, tc0cv = P[:, 80:96].view(M, 2, 8), P[:, 96:128].view(M, 2, 2, 8)
-        acv, bcv = P[:, 128:132].view(M, 2, 2), P[:, 132:136].view(M, 2, 2)
-        bsch, tc0ch = P[:, 136:152].view(M, 2, 8), \
-            P[:, 152:184].view(M, 2, 2, 8)
-        ach, bch = P[:, 184:188].view(M, 2, 2), P[:, 188:192].view(M, 2, 2)
+    return Y, C
 
-        # luma window: rows y0-4..y0+15, cols x0-4..x0+15 (padded coords)
-        y0 = 16 * (a // mb_w)
-        x0 = 16 * (a % mb_w)
-        ri = (y0[:, None, None] + i20[:, None]).expand(M, 20, 20)
-        ci = (x0[:, None, None] + i20).expand(M, 20, 20)
-        fi = f[:, None, None].expand(M, 20, 20)
-        win = Y[fi, ri, ci]
-        v = win[:, 4:20, :]        # own rows, cols -4..15: vertical edges
-        _edges(v, 4, 4, 4, _filt_luma, lambda e: (
-            bsv[:, e].repeat_interleave(4, -1), av[:, e:e + 1],
-            bv[:, e:e + 1], tc0v[:, e].repeat_interleave(4, -1)))
-        win[:, 4:20, :] = v
-        h = win[:, :, 4:20].transpose(1, 2).clone()   # [M, col, row]
-        _edges(h, 4, 4, 4, _filt_luma, lambda e: (
-            bsh[:, e].repeat_interleave(4, -1), ah[:, e:e + 1],
-            bh[:, e:e + 1], tc0h[:, e].repeat_interleave(4, -1)))
-        win[:, :, 4:20] = h.transpose(1, 2)
-        # write back own MB, left strip and above strip (not the corner)
-        keep = torch.ones((20, 20), dtype=torch.bool, device=dev)
-        keep[:4, :4] = False
-        Y[fi[:, keep], ri[:, keep], ci[:, keep]] = win[:, keep]
 
-        # chroma: both planes, window rows/cols -2..7
-        cy0 = 8 * (a // mb_w)
-        cx0 = 8 * (a % mb_w)
-        cri = (cy0[:, None, None, None] + i10[:, None]).expand(M, 2, 10, 10)
-        cci = (cx0[:, None, None, None] + i10).expand(M, 2, 10, 10)
-        cfi = f[:, None, None, None].expand(M, 2, 10, 10)
-        cpi = torch.arange(2, device=dev)[None, :, None, None].expand(
-            M, 2, 10, 10)
-        cwin = C[cfi, cpi, cri, cci]
-        cv = cwin[:, :, 2:10, :]
-        _edges(cv, 2, 2, 4, _filt_chroma, lambda e: (
-            bscv[:, None, e], acv[:, e, :, None], bcv[:, e, :, None],
-            tc0cv[:, e]))
-        cwin[:, :, 2:10, :] = cv
-        chh = cwin[:, :, :, 2:10].transpose(2, 3).clone()
-        _edges(chh, 2, 2, 4, _filt_chroma, lambda e: (
-            bsch[:, None, e], ach[:, e, :, None], bch[:, e, :, None],
-            tc0ch[:, e]))
-        cwin[:, :, :, 2:10] = chh.transpose(2, 3)
-        ckeep = torch.ones((10, 10), dtype=torch.bool, device=dev)
-        ckeep[:2, :2] = False
-        C[cfi[:, :, ckeep], cpi[:, :, ckeep], cri[:, :, ckeep],
-          cci[:, :, ckeep]] = cwin[:, :, ckeep]
+def unpad_planes(Y, C):
+    """The uint8 planes (y, cb, cr) inside ``pad_planes``' copies."""
     return (Y[:, 4:, 4:].to(torch.uint8), C[:, 0, 2:, 2:].to(torch.uint8),
             C[:, 1, 2:, 2:].to(torch.uint8))
 
 
+def _luma_mbs(P, Y, f, a, mb_w):
+    """``filter_mbs`` for luma; P: the MBs' parameter rows, int32."""
+    M = a.numel()
+    i20 = torch.arange(20, device=Y.device)
+    bsv, tc0v = P[:, 0:16].view(M, 4, 4), P[:, 16:32].view(M, 4, 4)
+    av, bv = P[:, 32:36], P[:, 36:40]
+    bsh, tc0h = P[:, 40:56].view(M, 4, 4), P[:, 56:72].view(M, 4, 4)
+    ah, bh = P[:, 72:76], P[:, 76:80]
+    # window: rows y0-4..y0+15, cols x0-4..x0+15 (padded coords)
+    y0 = 16 * (a // mb_w)
+    x0 = 16 * (a % mb_w)
+    ri = (y0[:, None, None] + i20[:, None]).expand(M, 20, 20)
+    ci = (x0[:, None, None] + i20).expand(M, 20, 20)
+    fi = f[:, None, None].expand(M, 20, 20)
+    win = Y[fi, ri, ci]
+    v = win[:, 4:20, :]        # own rows, cols -4..15: vertical edges
+    _edges(v, 4, 4, 4, _filt_luma, lambda e: (
+        bsv[:, e].repeat_interleave(4, -1), av[:, e:e + 1],
+        bv[:, e:e + 1], tc0v[:, e].repeat_interleave(4, -1)))
+    win[:, 4:20, :] = v
+    h = win[:, :, 4:20].transpose(1, 2).clone()   # [M, col, row]
+    _edges(h, 4, 4, 4, _filt_luma, lambda e: (
+        bsh[:, e].repeat_interleave(4, -1), ah[:, e:e + 1],
+        bh[:, e:e + 1], tc0h[:, e].repeat_interleave(4, -1)))
+    win[:, :, 4:20] = h.transpose(1, 2)
+    # own MB, left strip and above strip (not the corner)
+    keep = torch.ones((20, 20), dtype=torch.bool, device=Y.device)
+    keep[:4, :4] = False
+    return (fi[:, keep], ri[:, keep], ci[:, keep]), win[:, keep]
+
+
+def _chroma_mbs(P, C, f, a, mb_w):
+    """``filter_mbs`` for both chroma planes."""
+    M = a.numel()
+    dev = C.device
+    i10 = torch.arange(10, device=dev)
+    bscv, tc0cv = P[:, 80:96].view(M, 2, 8), P[:, 96:128].view(M, 2, 2, 8)
+    acv, bcv = P[:, 128:132].view(M, 2, 2), P[:, 132:136].view(M, 2, 2)
+    bsch, tc0ch = P[:, 136:152].view(M, 2, 8), P[:, 152:184].view(M, 2, 2, 8)
+    ach, bch = P[:, 184:188].view(M, 2, 2), P[:, 188:192].view(M, 2, 2)
+    # both planes, window rows/cols -2..7
+    cy0 = 8 * (a // mb_w)
+    cx0 = 8 * (a % mb_w)
+    cri = (cy0[:, None, None, None] + i10[:, None]).expand(M, 2, 10, 10)
+    cci = (cx0[:, None, None, None] + i10).expand(M, 2, 10, 10)
+    cfi = f[:, None, None, None].expand(M, 2, 10, 10)
+    cpi = torch.arange(2, device=dev)[None, :, None, None].expand(M, 2, 10,
+                                                                 10)
+    cwin = C[cfi, cpi, cri, cci]
+    cv = cwin[:, :, 2:10, :]
+    _edges(cv, 2, 2, 4, _filt_chroma, lambda e: (
+        bscv[:, None, e], acv[:, e, :, None], bcv[:, e, :, None],
+        tc0cv[:, e]))
+    cwin[:, :, 2:10, :] = cv
+    chh = cwin[:, :, :, 2:10].transpose(2, 3).clone()
+    _edges(chh, 2, 2, 4, _filt_chroma, lambda e: (
+        bsch[:, None, e], ach[:, e, :, None], bch[:, e, :, None],
+        tc0ch[:, e]))
+    cwin[:, :, :, 2:10] = chh.transpose(2, 3)
+    ckeep = torch.ones((10, 10), dtype=torch.bool, device=dev)
+    ckeep[:2, :2] = False
+    return ((cfi[:, :, ckeep], cpi[:, :, ckeep], cri[:, :, ckeep],
+             cci[:, :, ckeep]), cwin[:, :, ckeep])
+
+
+def filter_mbs(prm, Y, C, f, a, mb_w, part):
+    """One step of B3 for the MBs (f[i], a[i]) (frame, MB address; long
+    tensors), `part` "luma" or "chroma", on the padded int32 planes of
+    ``pad_planes``: reads each MB's window (own samples, left strip,
+    above strip), filters its vertical then horizontal edges, and returns
+    (plane, index, values), the samples the MBs change (own MB, left
+    strip, above strip; not the corner).  ``plane[index] = values`` stores
+    them.  The MBs must touch no common sample."""
+    P = prm[f, a].to(torch.int32)
+    if part == "luma":
+        return (Y, *_luma_mbs(P, Y, f, a, mb_w))
+    return (C, *_chroma_mbs(P, C, f, a, mb_w))
+
+
+def deblock_plain(prm, y, cb, cr, mb_w, mb_h):
+    """Plain PyTorch version of B3; returns filtered copies of the
+    planes.  prm u8 [F, n, 192] from ``pack_params``.  Runs
+    ``filter_mbs`` on the MBs of each anti-diagonal in turn."""
+    F = y.shape[0]
+    dev = y.device
+    Y, C = pad_planes(y, cb, cr)
+    for row in diag_schedule(mb_w, mb_h)[0]:
+        addrs = torch.as_tensor(row[row >= 0], dtype=torch.long, device=dev)
+        f = torch.arange(F, device=dev).repeat_interleave(addrs.numel())
+        a = addrs.repeat(F)
+        for part in PARTS:
+            plane, idx, val = filter_mbs(prm, Y, C, f, a, mb_w, part)
+            plane[idx] = val
+    return unpad_planes(Y, C)
+
+
+def deblock_tickets(mb_h, F):
+    """The task of each of B3's work tickets, in the order blocks claim
+    them: (frame, MB row, part), ticket t being part PARTS[t % 2] of
+    ``row_tickets(mb_h, F)[t // 2]``.  A block walks its row left to
+    right; MB (x, y) first waits until row y - 1 of its frame and part
+    has finished ``apron_wait(x, y, mb_w)`` MBs."""
+    return [(f, y, part) for f, y in row_tickets(mb_h, F) for part in PARTS]
+
+
 def deblock(prm, y, cb, cr, mb_w, mb_h):
     """B3: filter the planes.  CUDA tensors are filtered in place by the
-    kernel (one launch per anti-diagonal, issued by one C call) and
-    returned; CPU tensors take the plain version, which returns new
-    planes."""
+    kernel (one launch per call, its blocks scheduled by
+    ``deblock_tickets`` and ``apron_wait``) and returned; CPU tensors
+    take the plain version, which returns new planes."""
     F, n, nb = prm.shape
     if n != mb_w * mb_h or nb != PRM_BYTES or prm.dtype != torch.uint8:
         raise ValueError(f"prm must be uint8 [F,{mb_w * mb_h},"
@@ -292,7 +342,13 @@ def deblock(prm, y, cb, cr, mb_w, mb_h):
     if y.device.type == "cpu":
         return deblock_plain(prm, y, cb, cr, mb_w, mb_h)
     _build.check_cuda(prm, y, cb, cr)
-    _build.call("dt_deblock", prm, y, cb, cr, mb_w, mb_h, F)
+    if any(t.data_ptr() % 16 for t in (prm, y, cb, cr)):
+        raise ValueError("B3's parameter rows and planes must start on "
+                         "16-byte boundaries (it moves 16-byte rows)")
+    # ticket counter + one progress flag per (part, frame, MB row)
+    sched = torch.zeros(1 + 2 * F * mb_h, dtype=torch.int32,
+                        device=y.device)
+    _build.call("dt_deblock", prm, y, cb, cr, sched, mb_w, mb_h, F)
     deblock.launches += 1
     return y, cb, cr
 

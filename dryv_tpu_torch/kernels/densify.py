@@ -8,10 +8,15 @@ rank being the inclusive count of set bits up to c, when rank <= W, and
 0 otherwise (those heavy MBs are overwritten by the caller's overflow
 scatter, as in the JAX pipeline).
 
-The CUDA kernel (``csrc/densify.cu``) gives one warp to one MB row:
-``__ballot_sync``/``__popc`` rank 32 bits at a time, so the TPU's one-hot
-and lower-triangular matmuls disappear.  It is bound by device memory
-(~0.9 KB read and written per MB), not by arithmetic.
+The CUDA kernel (``csrc/densify.cu``) is bound by device memory (~0.9 KB
+read and written per MB), so it moves everything 16 bytes at a time: a
+block stages a tile of 16 rows (bitmaps and values) in shared memory,
+ranks each bitmap byte by a popcount scan, and writes that byte's 8
+coefficients as one 16-byte store.  The TPU's one-hot and
+lower-triangular matmuls disappear.  It needs rows in tiles of 16, W a
+multiple of 16 and 16-byte aligned tensors; the pipeline's views (npad a
+multiple of 128, W of 32, 64-byte aligned wire segments) meet that, and
+the wrapper raises on anything else.
 """
 from __future__ import annotations
 
@@ -52,6 +57,13 @@ def densify(bmp, vals, out=None):
         out.copy_(densify_plain(bmp, vals))
         return out
     _build.check_cuda(bmp, vals, out)
+    if (F * npad) % 16 or W % 16 or not 0 < W <= 2048:
+        raise ValueError(f"densify's kernel takes rows in tiles of 16 and W "
+                         f"a multiple of 16 up to 2048 (a tile's values sit "
+                         f"in shared memory), got {F * npad} rows, W={W}")
+    if any(t.data_ptr() % 16 for t in (bmp, vals, out)):
+        raise ValueError("densify's inputs and output must start on 16-byte "
+                         "boundaries (it moves them in 16-byte chunks)")
     _build.call("dt_densify", bmp, vals, out, F * npad, W)
     densify.launches += 1
     return out
