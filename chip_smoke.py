@@ -7,15 +7,20 @@
 Builds the port's C++ host library (g++) and CUDA kernels (nvcc) from
 the sources in this checkout, and holds each kernel against its plain
 PyTorch version at the shapes its paths give it (1080p batches of 16
-pictures, and of 1 for the per-picture path's intra wavefront and
-deblock; one band of 120x17 MBs x 4 for the banded wavefront; densify
-at W = 32, 96 and 256; deblock with every edge on and with random
-slices and disable_deblocking_filter_idc), with a tolerance of 0: the
-decoder is bit-exact.  Each kernel's bound is the bytes it must move
-(each input read once, each output written once) over the card's
-3.35 TB/s.  Then it drives each path of the port with the launch
-counters set to 0 just before and read just after, and checks every
-frame bit-exact against the native C++ decoder or a stored golden:
+pictures, and of 1 for the per-picture and I/P/B paths' intra wavefront
+and deblock and the I/P/B path's densify; one band of 120x17 MBs x 4
+for the banded wavefront; densify at W = 32, 96 and 256; deblock with every edge on, with random
+slices and disable_deblocking_filter_idc, and on inter edge parameters;
+motion compensation at 120x68 MBs over stacks of 3 pictures, P and B,
+weighted prediction 0/1/2, local and far vectors), with a tolerance of
+0: the decoder is bit-exact.  Each kernel's bound is the larger of the
+bytes it must move (each input read once, each output written once)
+over the card's 3.35 TB/s and, for motion compensation, the integer
+operations its inputs need over the card's int32 rate (64 a clock per
+SM, at its SM count and its maximum SM clock).  Then it drives each path of
+the port with the launch counters set to 0 just before and read just
+after, and checks every frame bit-exact against the native C++ decoder
+or a stored golden:
 
 - the batched all-intra decode,
   ``gop_pipeline.decode_annexb_gop_pipelined`` (densify, intra
@@ -26,12 +31,19 @@ frame bit-exact against the native C++ decoder or a stored golden:
   pipeline must hand to it;
 - the sharded decode, ``parallel`` (GOP-sharded, band-pipelined,
   band-sharded single frame, the dry run), on one card through meshes
-  that repeat it.
+  that repeat it;
+- the packed I/P/B path, ``device_ipb_packed.decode_annexb_device_packed``
+  (densify, motion compensation, intra wavefront and deblock at F = 1),
+  on ``bench_ipb.264`` and ``bench1080p_ipb.264``;
+- banded P recon, ``parallel.make_banded_p_recon_fn``, against motion
+  compensation on the whole plane, on meshes of one card and of several.
 
 It times the kernels, the end-to-end batched decode, the device span of
-a batch of 16 deblocked pictures, the per-picture decode and the banded
-pipeline beside the unbanded wavefront; a torch.profiler trace counts
-the device kernels of one B2 and one B3 call.  With --compare DIR (a
+a batch of 16 deblocked pictures, the per-picture decode, the banded
+pipeline beside the unbanded wavefront, and the 1080p I/P/B decode
+beside the native C++ decode with its device span per picture; a
+torch.profiler trace counts the device kernels of one B2, B3 and B4
+call.  With --compare DIR (a
 directory holding an earlier tree's ``densify.cu`` and ``deblock.cu``
 with the ``common.cuh`` they include, not part of the repo; their C
 entries as they were before B3 took a scratch argument) it also builds
@@ -45,12 +57,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -58,7 +72,20 @@ import torch
 F = 16           # pictures per batch, as the benchmark runs
 MB_W, MB_H = 120, 68
 REPS = 5
+SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's ~2 GHz SM clock
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+# 32-bit integer add, shift, compare, min/max and logic results per clock
+# per SM at compute capability 9.0 (CUDA C++ Programming Guide,
+# "Arithmetic Instructions" throughput table); times the card's SM count
+# and maximum SM clock it gives B4's operations rate, ~16.7 T/s on an
+# H100 SXM (132 SMs, 1980 MHz)
+INT32_OPS_PER_CLOCK_PER_SM = 64
+# integer operations of one 4x4 luma block's quarter-pel prediction by
+# phase 4*fy + fx: a 6-tap value with its rounding 13, an average 3, the
+# j lattice (36 horizontal taps, then 6-tap per sample) 532
+LUMA_OPS = (0, 256, 208, 256, 256, 464, 644, 464,
+            208, 788, 532, 788, 256, 464, 644, 464)
+CHROMA_OPS = 80     # two 2x2 bilinear blocks: weights, 4 taps a sample
 
 
 def fail(msg):
@@ -68,9 +95,13 @@ def fail(msg):
 
 def cuda_ms(fn, reps):
     """Mean device milliseconds of fn() over reps calls (after one warm
-    call), by CUDA events."""
+    call), by CUDA events.  A sleep kernel ahead of the first event holds
+    the card while the host enqueues the calls, so that a kernel shorter
+    than its wrapper's host time is timed by its device work and not by
+    the enqueue (as long as the calls are enqueued within the sleep)."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -170,6 +201,110 @@ def bound_ms(*tensors):
         / HBM_BYTES_PER_S * 1e3
 
 
+@functools.cache
+def int32_ops_per_s():
+    """The card's peak rate of 32-bit integer operations:
+    ``INT32_OPS_PER_CLOCK_PER_SM`` x its SMs x its maximum SM clock
+    (``nvidia-smi``)."""
+    mhz = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_OPS_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
+
+
+def b4_bound(refs_y, refs_cb, refs_cr, rs0, rs1, mv0, mv1, wp, mb_w, mb_h):
+    """(bound ms, "bytes" or "operations") of one B4 call on these
+    inputs, the larger of: the predictions written, each list's slots
+    (and reference indices under weighted prediction) and the WP tables
+    read, and for every block and list it uses, its vector and its 16
+    luma + 8 chroma reference samples once, over the memory rate; the
+    operations its phases need (``LUMA_OPS``, ``CHROMA_OPS``) and the
+    combine's 6 per sample (9 when bi-predicted), over the int32 rate."""
+    n = mb_w * mb_h
+    mode = wp["mode"]
+    lists = [(rs0, mv0)] + ([(rs1, mv1)] if rs1 is not None else [])
+    nbytes = n * 384 + rs0.numel() * len(lists) * (2 if mode else 1)
+    if mode:
+        nbytes += 2 * 32 * 6 * 2 + 256 * 2 * 2 + 16
+    ops = 0
+    used = []
+    phase_ops = torch.tensor(LUMA_OPS, device=rs0.device)
+    for rs, mv in lists:
+        u = rs >= 0
+        k = int(u.sum())
+        nbytes += k * (4 + 24)
+        ph = (mv[:, 1].long() & 3) * 4 + (mv[:, 0].long() & 3)
+        ops += int(phase_ops[ph][u].sum()) + CHROMA_OPS * k
+        used.append(u)
+    either = used[0] if len(used) == 1 else used[0] | used[1]
+    both = 0 if len(used) == 1 else int((used[0] & used[1]).sum())
+    ops += 24 * (6 * int(either.sum()) + 3 * both)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int32_ops_per_s() * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def motion_field(rng, n4, R, reach, dev):
+    """A random motion field on the packed wire's fields: int16 vectors
+    [n4, 2 lists, 2] within +-reach quarter pels, int8 slots and
+    reference indices [n4, 4] (rs0, rs1, ri0, ri1; a quarter of the
+    blocks use list 0 only, a quarter list 1 only, a quarter both, a
+    quarter none), and WP tables (explicit [2,32,6] and implicit [256,2]
+    int16, zero-padded; misc int32 = denominators 5 and 6, n_ref1 6)."""
+    mv = rng.integers(-reach, reach + 1, (n4, 2, 2)).astype(np.int16)
+    use = rng.integers(0, 4, n4)
+    rs0 = np.where(use & 1, rng.integers(0, R, n4), -1)
+    rs1 = np.where(use & 2, rng.integers(0, R, n4), -1)
+    rsri = np.stack([rs0, rs1, np.where(rs0 >= 0, rng.integers(0, 6, n4),
+                                        -1),
+                     np.where(rs1 >= 0, rng.integers(0, 6, n4), -1)], 1)
+    expl = np.zeros((2, 32, 6), np.int16)
+    expl[:, :6] = rng.integers(-128, 128, (2, 6, 6))
+    imp = np.zeros((256, 2), np.int16)
+    imp[:36] = rng.integers(-64, 129, (36, 2))
+    t = [torch.from_numpy(a).to(dev)
+         for a in (mv, rsri.astype(np.int8), expl, imp)]
+    return t + [torch.tensor([5, 6, 6, 0], dtype=torch.int32, device=dev)]
+
+
+def b4_args(stacks, field, nlists, mode, mb_w, mb_h):
+    """``mc_frame``'s arguments for a P (nlists 1) or B picture."""
+    mv, rsri, expl, imp, misc = field
+    b = nlists == 2
+    wp = {"mode": mode, "ri0": rsri[:, 2], "ri1": rsri[:, 3], "expl": expl,
+          "imp": imp, "misc": misc}
+    return (*stacks, rsri[:, 0], rsri[:, 1] if b else None, mv[:, 0],
+            mv[:, 1] if b else None, wp, mb_w, mb_h)
+
+
+def inter_edge_params(rng, mb_w, mb_h, tables, dev):
+    """B3's parameter rows [1, n, 192] of a random I/P/B picture through
+    ``deblock_precompute``: intra and inter kinds, sorted slice ids with
+    disable_deblocking_filter_idc 0/1/2, coded flags and small vectors per
+    4x4 block, so that bS 1 and 2 occur and change along an edge."""
+    from dryv_tpu_torch.kernels.deblock import (deblock_precompute,
+                                                pack_params)
+
+    n = mb_w * mb_h
+    H4, W4 = 4 * mb_h, 4 * mb_w
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)[None]
+
+    offs = 2 * rng.integers(-3, 4, n)
+    return pack_params(deblock_precompute(
+        t(rng.choice([0, 1, 2, 4, 5, 6, 7, 8, 9, 10], n,
+                     p=[.04, .03, .03] + [.9 / 7] * 7)),
+        t(rng.integers(10, 52, n)), t(np.sort(rng.integers(0, 9, n))),
+        t(rng.choice([0, 1, 2], n, p=[.8, .1, .1])), t(offs), t(-offs),
+        mb_w, mb_h, 1, -2, tables, t(rng.integers(0, 2, n)),
+        t(rng.random((H4, W4)) < 0.3), t(rng.integers(-6, 7, (H4, W4, 2))),
+        t(rng.integers(-6, 7, (H4, W4, 2))), t(rng.integers(-1, 3, (H4, W4))),
+        t(rng.integers(-1, 3, (H4, W4)))))
+
+
 # The C entries of the earlier kernels --compare builds: name, argument
 # kinds ("p" pointer, "i" int; the stream follows), as the tree before
 # this B3 had them.
@@ -228,10 +363,10 @@ def old_kernels(src_dir):
 
 
 def kernel_launches_in_profile(fn, names):
-    """For each of `names`, the device kernels whose name holds it in a
-    torch.profiler trace of one fn() call; None when the profiler
-    records no device time.  (One session per process: a second one
-    records no device events.)"""
+    """For each of `names`, the device ms of each device kernel whose
+    name holds it, in launch order, in a torch.profiler trace of one
+    fn() call; None when the profiler records no device time.  (One
+    session per process: a second one records no device events.)"""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -243,7 +378,9 @@ def kernel_launches_in_profile(fn, names):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not evs:
         return None
-    return {n: sum(1 for e in evs if n in e.name) for n in names}
+    return {n: [round((e.time_range.end - e.time_range.start) / 1e3, 4)
+                for e in sorted(evs, key=lambda e: e.time_range.start)
+                if n in e.name] for n in names}
 
 
 def main():
@@ -260,14 +397,18 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    from dryv_tpu_torch import _build, gop_pipeline, parallel
+    from dryv_tpu_torch import _build, device_ipb_packed, gop_pipeline, \
+        parallel
     from dryv_tpu_torch.decoder import DecodedFrame
+    from dryv_tpu_torch.device_ipb_packed import (
+        PackedPictureDecoder, decode_annexb_device_packed)
     from dryv_tpu_torch.gop_pipeline import (PackedGopDecoder,
                                              decode_annexb_gop_pipelined)
     from dryv_tpu_torch.kernels.deblock import (deblock, deblock_plain,
-                                                deblock_precompute_intra,
+                                                deblock_precompute,
                                                 pack_params)
     from dryv_tpu_torch.kernels.densify import densify, densify_plain
+    from dryv_tpu_torch.kernels.inter import mc_frame, mc_frame_wire_plain
     from dryv_tpu_torch.kernels.wavefront import (intra_recon,
                                                   intra_recon_plain,
                                                   recon_inputs)
@@ -303,6 +444,10 @@ def main():
         print(f"build: earlier B1 and B3 from {args.compare} "
               f"{time.perf_counter() - t0:.2f} s  [{card}]")
 
+    print(f"int32 peak {int32_ops_per_s() / 1e12:.3f} T/s "
+          f"({INT32_OPS_PER_CLOCK_PER_SM} a clock per SM, "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+          f"SMs, maximum SM clock)  [{card}]")
     tables = decoder_tables(dev)
     rng = np.random.default_rng(2024)
     kernels = {}
@@ -314,11 +459,12 @@ def main():
         if err != 0:
             fail(f"{label} differs from its plain version (max {err})")
 
-    def record(key, route_src, replaces, err, ms, plain_ms, bound):
+    def record(key, route_src, replaces, err, ms, plain_ms, bound,
+               bound_by="bytes"):
         kernels[key] = {"name": key, "route": "cuda", "source": route_src,
                         "replaces": replaces, "launches": None,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": "bytes",
+                        "bound_ms": bound, "bound_by": bound_by,
                         "library_ms": None}
         report(key, err, ms, plain_ms, bound)
 
@@ -334,16 +480,19 @@ def main():
               f"/ {t[2]:.4f} ms; bit-exact to each other  [{card}]")
 
     # ---- phase 3: each kernel against its plain version ---------------
-    # B1 at the wire's shape (16 pictures x 8192 MB rows) at three value
-    # strides, each with rows of 0, W, W + 1 and 408 values
+    # B1 at the wire's shapes (16 pictures x 8192 MB rows on the batched
+    # path, 1 picture on the I/P/B path) at three value strides, each
+    # with rows of 0, W, W + 1 and 408 values
     npad = 8192
-    for W in (32, 96, 256):
-        counts = rng.integers(0, 409, (F, npad, 1))
+    b1_cases = {}
+    for nf, W in [(F, w) for w in (32, 96, 256)] + [(1, w)
+                                                    for w in (32, 96, 256)]:
+        counts = rng.integers(0, 409, (nf, npad, 1))
         counts[:, :4, 0] = [0, W, W + 1, 408]
-        bits = rng.random((F, npad, 408)) * 408 < counts
+        bits = rng.random((nf, npad, 408)) * 408 < counts
         bmp = torch.from_numpy(np.packbits(bits, axis=-1,
                                            bitorder="little")).to(dev)
-        vals = torch.from_numpy(rng.integers(-127, 128, (F, npad, W))
+        vals = torch.from_numpy(rng.integers(-127, 128, (nf, npad, W))
                                 .astype(np.int8)).to(dev)
         out_k = densify(bmp, vals)
         err = int((out_k.int() - densify_plain(bmp, vals).int()).abs().max())
@@ -351,11 +500,13 @@ def main():
         plain = cuda_ms(lambda: densify_plain(bmp, vals), 5)
         bound = bound_ms(bmp, vals, out_k)
         if W == 96:
-            record("densify", "dryv_tpu_torch/csrc/densify.cu",
+            b1_cases[nf] = (bmp, vals)
+            record("densify" if nf == F else "densify_f1",
+                   "dryv_tpu_torch/csrc/densify.cu",
                    "dryv_tpu/kernels/densify.py:38", err, ms, plain, bound)
         else:
-            report(f"densify at W = {W}", err, ms, plain, bound)
-        if old:
+            report(f"densify at F = {nf}, W = {W}", err, ms, plain, bound)
+        if old and nf == F:
             if not torch.equal(old["densify"](bmp, vals), out_k):
                 fail(f"densify W={W}: the earlier B1 and the current differ")
             in_turns(f"densify bmp [{F}, {npad}, 51] vals [{F}, {npad}, "
@@ -447,7 +598,7 @@ def main():
             dis = torch.from_numpy(rng.integers(0, 3, (nf, n))).to(dev)
         else:
             sid = dis = torch.zeros((nf, n), dtype=torch.int32, device=dev)
-        return pack_params(deblock_precompute_intra(
+        return pack_params(deblock_precompute(
             kind, qp, sid, dis, offs, -offs, MB_W, MB_H, 1, -2, tables))
 
     def fresh_ms(fn, prm, planes, reps=10, geom=(MB_W, MB_H)):
@@ -549,20 +700,72 @@ def main():
               f"of 10: every edge {t[0]:.4f} ms, no edge {t[1]:.4f} ms  "
               f"[{card}]")
 
-    # one B2 or B3 call is one launch on the device
-    names = ("intra_rows_kernel", "deblock_rows_kernel")
+    # B3 at F = 1 on inter edge parameters (the I/P/B path's): bS 1 and
+    # 2, changing from one 4-line segment to the next along an edge
+    prm_in = inter_edge_params(rng, MB_W, MB_H, tables, dev)
+    bs_seen = sorted(torch.unique(prm_in[..., :16]).tolist())
+    err = max_err(deblock(prm_in, *[p.clone() for p in planes1], MB_W,
+                          MB_H), deblock_plain(prm_in, *planes1, MB_W, MB_H))
+    changed = [int((a != b).sum()) for a, b in zip(
+        deblock(prm_in, *[p.clone() for p in planes1], MB_W, MB_H), planes1)]
+    print(f"kernel deblock (F = 1) on inter edge parameters (luma vertical "
+          f"bS {bs_seen}): max_abs_err {err}, changed {changed} samples "
+          f"(y, cb, cr), kernel {fresh_ms(deblock, prm_in, planes1):.4f} "
+          f"ms  [{card}]")
+    if err or min(changed) == 0 or not {1, 2} <= set(bs_seen):
+        fail("deblock on inter edge parameters differs, filtered nothing "
+             "or saw no bS 1 and 2")
+
+    # B4 at the I/P/B path's shape: 120x68 MBs over random stacks of 3
+    # pictures; P (list 0) and B (both lists) under weighted prediction
+    # 0/1/2; vectors within 48 pixels ("local") and reaching past every
+    # edge of the picture ("far")
+    n4 = 16 * n
+    stacks = [torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+              .to(dev) for shape in ((3, 16 * MB_H, 16 * MB_W),
+                                     (3, 8 * MB_H, 8 * MB_W),
+                                     (3, 8 * MB_H, 8 * MB_W))]
+    b4_cases = {}
+    for motion, reach in (("far", 4 * (16 * MB_W + 64)), ("local", 4 * 48)):
+        field = motion_field(rng, n4, 3, reach, dev)
+        for nl, mode in ((1, 0), (1, 1), (2, 0), (2, 1), (2, 2)):
+            args = b4_args(stacks, field, nl, mode, MB_W, MB_H)
+            err = max_err(mc_frame(*args), mc_frame_wire_plain(*args))
+            if err:
+                fail(f"inter_mc ({motion}, {'PB'[nl - 1]}, WP {mode}) "
+                     f"differs from its plain version (max {err})")
+            b4_cases[(motion, nl, mode)] = (args, cuda_ms(
+                lambda: mc_frame(*args), 20))
+    print("kernel inter_mc, bit-exact in every case, CUDA events, mean of "
+          "20: " + ", ".join(
+              f"{m} {'PB'[nl - 1]} WP {wm} {ms:.4f} ms (bound "
+              f"{b4_bound(*a)[0]:.4f} ms)"
+              for (m, nl, wm), (a, ms) in b4_cases.items()) + f"  [{card}]")
+    args, ms = b4_cases[("local", 2, 2)]
+    record("inter_mc", "dryv_tpu_torch/csrc/inter_mc.cu",
+           "dryv_tpu/kernels/inter.py:146", 0, ms,
+           cuda_ms(lambda: mc_frame_wire_plain(*args), 3), *b4_bound(*args))
+
+    # one B1, B2, B3 or B4 call is one launch on the device; the trace's
+    # device time of each kernel, beside cuda_ms's
+    names = ("densify_kernel", "intra_rows_kernel", "deblock_rows_kernel",
+             "inter_mc_kernel")
+    b4_prof = [b4_cases[("local", 1, 1)][0], b4_cases[("local", 2, 2)][0]]
     n_prof = kernel_launches_in_profile(
-        lambda: ([intra_recon(*inputs, tables, MB_W, rows, halo=halo)
+        lambda: ([densify(*b1_cases[nf]) for nf in (F, 1)],
+                 [intra_recon(*inputs, tables, MB_W, rows, halo=halo)
                   for inputs, rows, halo in b2_cases.values()],
                  [deblock(prm, *[p.clone() for p in planes], MB_W, MB_H)
-                  for prm, planes in b3_cases.values()]), names)
-    print(f"device kernels in a torch.profiler trace of {len(b2_cases)} B2 "
-          f"calls ({', '.join(b2_cases)}) and {len(b3_cases)} B3 calls "
-          f"({', '.join(b3_cases)}): "
-          f"{'not measured' if n_prof is None else n_prof}")
-    if n_prof is not None and (n_prof[names[0]] != len(b2_cases)
-                               or n_prof[names[1]] != len(b3_cases)):
-        fail("a B2 or B3 call launched other than one kernel")
+                  for prm, planes in b3_cases.values()],
+                 [mc_frame(*a) for a in b4_prof]), names)
+    print(f"device ms of each device kernel in a torch.profiler "
+          f"trace of 2 B1 calls (W = 96 at F = {F}, 1), {len(b2_cases)} B2 "
+          f"calls ({', '.join(b2_cases)}), {len(b3_cases)} B3 calls "
+          f"({', '.join(b3_cases)}) and {len(b4_prof)} B4 calls (P, B): "
+          f"{'not measured' if n_prof is None else n_prof}  [{card}]")
+    if n_prof is not None and [len(n_prof[k]) for k in names] != [
+            2, len(b2_cases), len(b3_cases), len(b4_prof)]:
+        fail("a B1, B2, B3 or B4 call launched other than one kernel")
 
     # ---- phases 4-6: the main path, bit-exact, counted ----------------
     nthreads = os.cpu_count() or 1
@@ -587,18 +790,21 @@ def main():
             g = np.load(f"benchdata/{against}")
             refs.append([(g["y"], g["cb"], g["cr"])])
     def reset_counts():
-        densify.launches = deblock.launches = 0
+        densify.launches = deblock.launches = mc_frame.launches = 0
         intra_recon.launches = intra_recon.banded_launches = 0
         decode_annexb_gop_pipelined.fallback_calls = 0
         decode_annexb_fast.host_calls = 0
+        decode_annexb_device_packed.host_calls = 0
 
     def counts():
         return {"densify": densify.launches,
                 "intra_wavefront": intra_recon.launches,
                 "intra_wavefront_banded": intra_recon.banded_launches,
                 "deblock": deblock.launches,
+                "inter_mc": mc_frame.launches,
                 "fallback_calls": decode_annexb_gop_pipelined.fallback_calls,
-                "host_calls": decode_annexb_fast.host_calls}
+                "host_calls": decode_annexb_fast.host_calls,
+                "ipb_host_calls": decode_annexb_device_packed.host_calls}
 
     def check_frames(label, got, ref, against):
         """got: DecodedFrames; ref: (y, cb, cr) per frame."""
@@ -864,6 +1070,175 @@ def main():
           f"({times[3][1]:.3f}) ms, banded pipeline 4 bands Fi=4 "
           f"{times[1][0]:.3f} ({times[1][1]:.3f}) / {times[2][0]:.3f} "
           f"({times[2][1]:.3f}) ms  [{card}]")
+
+    # ---- phase 10: the packed I/P/B path ----------------------------------
+    gi = np.load("benchdata/bench_ipb_golden.npz")
+    ipb_small = open("benchdata/bench_ipb.264", "rb").read()
+    ipb = open("benchdata/bench1080p_ipb.264", "rb").read()
+    ipb_ref = [(r.y, r.cb, r.cr) for r in
+               decode_annexb_native(ipb, n_threads=nthreads)]
+    seen = {}         # (nlists, wp_mode) -> pictures
+    captured = {}     # nlists -> one B4 call's arguments on bench1080p
+    forward = PackedPictureDecoder.forward
+    mc_of_path = device_ipb_packed.mc_frame
+
+    def seen_forward(self, blob, W, ecap, ovcap, refs, nlists, wp_mode,
+                     *rest):
+        key = ("IPB"[nlists], wp_mode)
+        seen[key] = seen.get(key, 0) + 1
+        return forward(self, blob, W, ecap, ovcap, refs, nlists, wp_mode,
+                       *rest)
+
+    def capture_mc(*args):
+        if args[3].shape[0] == 16 * MB_W * MB_H:
+            captured.setdefault(1 if args[4] is None else 2, args)
+        return mc_of_path(*args)
+
+    PackedPictureDecoder.forward = seen_forward
+    device_ipb_packed.mc_frame = capture_mc
+    reset_counts()
+    try:
+        check_frames("packed I/P/B bench_ipb.264 (640x368, 9 pictures)",
+                     decode_annexb_device_packed(ipb_small,
+                                                 n_threads=nthreads,
+                                                 device=dev),
+                     [(gi[f"f{i}_y"], gi[f"f{i}_b"], gi[f"f{i}_r"])
+                      for i in range(9)], "bench_ipb_golden.npz")
+        check_frames("packed I/P/B bench1080p_ipb.264 (1080p, 10 pictures)",
+                     decode_annexb_device_packed(ipb, n_threads=nthreads,
+                                                 device=dev),
+                     ipb_ref, "native C++")
+    finally:
+        PackedPictureDecoder.forward = forward
+        device_ipb_packed.mc_frame = mc_of_path
+    c = counts()
+    print(f"pictures by type and weighted-prediction mode on the packed "
+          f"I/P/B path: {seen}")
+    need("packed I/P/B path", c, ("densify", "intra_wavefront", "deblock",
+                                  "inter_mc"),
+         report={"inter_mc": "inter_mc", "densify_f1": "densify"})
+    if c["ipb_host_calls"]:
+        fail("the packed I/P/B path sent a stream to the host decoder")
+    for nl, a in sorted(captured.items()):
+        print(f"kernel inter_mc on a {'PB'[nl - 1]} picture of "
+              f"bench1080p_ipb.264 (WP {a[7]['mode']}, stack of "
+              f"{a[0].shape[0]}), CUDA events, mean of 20: "
+              f"{cuda_ms(lambda: mc_frame(*a), 20):.4f} ms, plain "
+              f"{cuda_ms(lambda: mc_frame_wire_plain(*a), 3):.4f} ms, "
+              f"bound {b4_bound(*a)[0]:.4f} ms ({b4_bound(*a)[1]})  "
+              f"[{card}]")
+
+    # end to end, frames to host, in turns with the native C++ decode
+    fps = {"native C++": [], "packed I/P/B": []}
+    for label in ("native C++", "packed I/P/B") * 3:
+        tm = StageTimers()
+        t0 = time.perf_counter()
+        if label == "native C++":
+            got = decode_annexb_native(ipb, n_threads=nthreads)
+        else:
+            got = decode_annexb_device_packed(ipb, n_threads=nthreads,
+                                              device=dev, timers=tm)
+        wall = time.perf_counter() - t0
+        fps[label].append(len(got) / wall)
+        check_frames(f"{label} bench1080p_ipb.264 (timed)", got, ipb_ref,
+                     "native C++")
+    print("e2e bench1080p_ipb.264 (10 pictures, frames to host, "
+          f"n_threads={nthreads}), in turns: " + "; ".join(
+              f"{k} median {statistics.median(v):.2f} fps (runs "
+              f"{', '.join(f'{x:.2f}' for x in v)})" for k, v in fps.items())
+          + f"  [{card}]")
+    per_pic = {k: round(v / len(got) * 1e3, 3) for k, v in tm.t.items()}
+    print(f"e2e packed I/P/B stage ms/picture (last run): "
+          f"{json.dumps(per_pic)}; stage sum / wall "
+          f"{sum(tm.t.values()) / wall:.3f}  [{card}]")
+
+    # the device span of each picture: CUDA events around
+    # PackedPictureDecoder.forward, nothing synchronising inside the run
+    spans = []
+
+    def timed_forward(self, *a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = forward(self, *a)
+        e1.record()
+        spans.append((e0, e1, "IPB"[a[5]]))
+        return out
+
+    PackedPictureDecoder.forward = timed_forward
+    try:
+        t0 = time.perf_counter()
+        decode_annexb_device_packed(ipb, n_threads=nthreads, device=dev,
+                                    device_out=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        PackedPictureDecoder.forward = forward
+    ms = [(a.elapsed_time(b), t) for a, b, t in spans]
+    print(f"device span per picture of bench1080p_ipb.264 (device output), "
+          f"CUDA events: " + ", ".join(f"{t} {v:.3f}" for v, t in ms)
+          + f" ms; mean {statistics.mean(v for v, _ in ms):.3f} ms, "
+          f"{sum(v for v, _ in ms) / 1e3 / wall:.4f} of the {wall:.3f} s "
+          f"wall  [{card}]")
+
+    # the host side of the device stage: kernel launches per picture in a
+    # CPU-activity torch.profiler trace (the process's first profiler run
+    # took the device events), and the calls that synchronise with the
+    # card
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        decode_annexb_device_packed(ipb, n_threads=nthreads, device=dev,
+                                    device_out=True)
+        torch.cuda.synchronize()
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        decode_annexb_device_packed(ipb, n_threads=nthreads, device=dev,
+                                    device_out=True)
+    torch.cuda.set_sync_debug_mode(0)
+    n_sync = sum("synchronizing" in str(x.message) for x in caught)
+    print(f"packed I/P/B bench1080p_ipb.264 host side: {n_launch / 10:.1f} "
+          f"kernel launches per picture (cudaLaunchKernel in a CPU-activity "
+          f"torch.profiler trace), {n_sync} synchronizing calls in a decode "
+          f"(torch.cuda sync debug mode)  [{card}]")
+
+    # ---- phase 11: banded P recon, equal to B4 on the whole plane -------
+    prng = np.random.default_rng(5)
+    n4 = 16 * n
+    pmv = np.stack([prng.integers(-4 * 80, 4 * 80 + 1, n4),
+                    prng.integers(-4 * 48, 4 * 48 + 1, n4)], 1)
+    prs = np.where(prng.random(n4) < 0.05, -1, 0)
+    yres = prng.integers(-30, 31, (n, 16, 16))
+    cres = prng.integers(-30, 31, (n, 2, 8, 8))
+    ref = [p[0] for p in stacks]
+    py, pc = mc_frame(*(p[None] for p in ref),
+                      torch.from_numpy(prs.astype(np.int8)).to(dev), None,
+                      torch.from_numpy(pmv.astype(np.int16)).to(dev), None,
+                      {"mode": 0}, MB_W, MB_H)
+    ty = (py.int() + torch.from_numpy(yres).to(dev)).clamp(0, 255)
+    tc = (pc.int() + torch.from_numpy(cres).to(dev)).clamp(0, 255)
+    want = (ty.view(MB_H, MB_W, 16, 16).permute(0, 2, 1, 3)
+            .reshape(16 * MB_H, 16 * MB_W),
+            *(tc[:, p].reshape(MB_H, MB_W, 8, 8).permute(0, 2, 1, 3)
+              .reshape(8 * MB_H, 8 * MB_W) for p in (0, 1)))
+    reset_counts()
+    for devs in [["cuda:0"] * 4] + ([[f"cuda:{i}" for i in range(
+            min(4, n_cards))]] if n_cards > 1 else []):
+        run = parallel.make_banded_p_recon_fn(
+            parallel.make_mesh({"band": len(devs)}, devs), MB_W, MB_H,
+            apron=64)
+        got = run(*(p.cpu().numpy() for p in ref), pmv, prs, yres, cres,
+                  device_out=True)
+        if not all(torch.equal(g.to(dev), w.to(torch.uint8))
+                   for g, w in zip(got, want)):
+            fail(f"banded P recon over {devs} differs from B4 on the whole "
+                 f"plane")
+        print(f"banded P recon over {devs} ({MB_H // len(devs)} MB rows a "
+              f"band, apron 64): equal to B4 on the whole plane")
+    need("banded P recon", counts(), ("inter_mc",))
 
     for k, v in kernels.items():
         if not v["launches"]:

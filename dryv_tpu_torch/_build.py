@@ -32,6 +32,7 @@ ENTRIES = {
     "dt_densify": "pppii",
     "dt_intra_wavefront": "pppppppppppppiii",
     "dt_deblock": "pppppiii",
+    "dt_inter_mc": "p" * 14 + "i" * 10,
 }
 
 _lib = None

@@ -25,7 +25,7 @@ import torch
 from .coeffs import KIND_I8
 
 from .device import resolve_device
-from .kernels.deblock import deblock, deblock_precompute_intra, pack_params
+from .kernels.deblock import deblock, deblock_precompute, pack_params
 from .kernels.densify import densify
 from .kernels.geometry import BLK, L, round_up
 from .kernels.transform import stage_a_residuals
@@ -129,6 +129,38 @@ def _round_cap(x, q):
     return max(q, (int(x) + q - 1) & ~(q - 1))
 
 
+def split_blob(blob, offs):
+    """Typed views of a device blob's segments; offs maps each name to
+    (offset, shape, numpy dtype), as ``_blob_layout`` returns them."""
+    seg = {}
+    for name, (off, shape, dt) in offs.items():
+        nb = int(np.prod(shape)) * np.dtype(dt).itemsize
+        seg[name] = blob[off:off + nb].view(_TORCH_DTYPE[np.dtype(dt)]) \
+            .view(shape)
+    return seg
+
+
+def dense_rows(seg, npad, n):
+    """Wire segments [F, ...] -> dense coefficient rows i16 [F, n, 408]:
+    densify (B1), then the |v| > 127 corrections and the heavy MBs'
+    whole rows."""
+    F = seg["bmp"].shape[0]
+    dev = seg["bmp"].device
+    # one spare row at the end takes the overflow pad slots
+    dense = torch.empty((F * npad + 1, L), dtype=torch.int16, device=dev)
+    densify(seg["bmp"], seg["vals"], out=dense[:F * npad].view(F, npad, L))
+    # |v| > 127 corrections: an accumulating add (pads add 0 at 0)
+    fbase = torch.arange(F, device=dev)[:, None]
+    dense.view(-1).index_add_(
+        0, (seg["exc_idx"].long() + fbase * (npad * L)).reshape(-1),
+        seg["exc_delta"].reshape(-1))
+    # heavy MBs ship whole rows; pad slots (index npad) go to the spare
+    oi = seg["ovf_idx"].long()
+    rows = torch.where(oi < npad, oi + fbase * npad, F * npad)
+    dense.index_copy_(0, rows.reshape(-1), seg["ovf_rows"].reshape(-1, L))
+    return dense[:F * npad].view(F, npad, L)[:, :n]
+
+
 class PackedGopDecoder(torch.nn.Module):
     """The device side of one batch: blob -> (y, cb, cr) uint8 planes
     [F, 16*mb_h, 16*mb_w] / [F, 8*mb_h, 8*mb_w], uncropped.
@@ -154,63 +186,17 @@ class PackedGopDecoder(torch.nn.Module):
 
     def forward(self, blob, W, ecap, ovcap):
         """blob: uint8 [total] on the device, laid out by _blob_layout."""
-        F, npad, n = self.F, self.npad, self.n
-        offs, _ = _blob_layout(F, npad, n, W, ecap, ovcap)
-        seg = {}
-        for name, (off, shape, dt) in offs.items():
-            nb = int(np.prod(shape)) * np.dtype(dt).itemsize
-            seg[name] = blob[off:off + nb].view(_TORCH_DTYPE[np.dtype(dt)]) \
-                .view(shape)
-        dev = blob.device
-        # one spare row at the end takes the overflow pad slots
-        dense = torch.empty((F * npad + 1, L), dtype=torch.int16, device=dev)
-        densify(seg["bmp"], seg["vals"], out=dense[:F * npad].view(F, npad, L))
-        # |v| > 127 corrections: an accumulating add (pads add 0 at 0)
-        fbase = torch.arange(F, device=dev)[:, None]
-        dense.view(-1).index_add_(
-            0, (seg["exc_idx"].long() + fbase * (npad * L)).reshape(-1),
-            seg["exc_delta"].reshape(-1))
-        # heavy MBs ship whole rows; pad slots (index npad) go to the spare
-        oi = seg["ovf_idx"].long()
-        rows = torch.where(oi < npad, oi + fbase * npad, F * npad)
-        dense.index_copy_(0, rows.reshape(-1),
-                          seg["ovf_rows"].reshape(-1, L))
-        i16 = dense[:F * npad].view(F, npad, L)[:, :n]
-        return self.decode_rows(i16, seg["u8"])
+        seg = split_blob(blob, _blob_layout(self.F, self.npad, self.n, W,
+                                            ecap, ovcap)[0])
+        return self.decode_rows(dense_rows(seg, self.npad, self.n),
+                                seg["u8"])
 
     def decode_rows(self, i16, u8, pcm_y=None, pcm_c=None):
         """Dense coefficient rows i16 [F, n, 408] + per-MB bytes u8
         [F, n, 19] (+ PCM samples) -> planes."""
-        F, n, mb_w, mb_h = self.F, self.n, self.mb_w, self.mb_h
+        mb_w, mb_h = self.mb_w, self.mb_h
         tabs = self.tables
-        qp_y = u8[..., 1].to(torch.int32)
-        sid = u8[..., 14].to(torch.int32) | (u8[..., 15].to(torch.int32) << 8)
-        sid2 = sid.view(F, mb_h, mb_w)
-        # shifted-neighbour slice-id grids (-9 = outside the picture): a
-        # neighbour is available iff it exists and shares the slice
-        nbs = [torch.full_like(sid2, -9) for _ in range(4)]
-        nbs[0][:, :, 1:] = sid2[:, :, :-1]
-        nbs[1][:, 1:, :] = sid2[:, :-1, :]
-        nbs[2][:, 1:, :-1] = sid2[:, :-1, 1:]
-        nbs[3][:, 1:, 1:] = sid2[:, :-1, :-1]
-        m4n = u8[..., 4:12]
-        m8n = u8[..., 12:14]
-        s = {
-            "kind": u8[..., 0],
-            "qp_y": qp_y,
-            "qp_cb": chroma_qp(qp_y, self.c0, tabs["qpc_tab"]),
-            "qp_cr": chroma_qp(qp_y, self.c1, tabs["qpc_tab"]),
-            "i16_mode": u8[..., 2],
-            "chroma_mode": u8[..., 3],
-            "modes4": torch.stack([m4n & 15, m4n >> 4], -1).reshape(F, n, 16),
-            "modes8": torch.stack([m8n & 15, m8n >> 4], -1).reshape(F, n, 4),
-            "luma_lv": i16[..., :256],
-            "luma_dc": i16[..., 256:272],
-            "chroma_dc": i16[..., 272:280],
-            "chroma_ac": i16[..., 280:408],
-        }
-        for k, g in zip(("avail_a", "avail_b", "avail_c", "avail_d"), nbs):
-            s[k] = (g == sid2).reshape(F, n)
+        s = wire_syntax(i16, u8, mb_w, mb_h, self.c0, self.c1, tabs)
         if pcm_y is not None:
             s["pcm_y"], s["pcm_c"] = pcm_y, pcm_c
         y_z, c_resid = stage_a_residuals(s, tabs)
@@ -218,11 +204,49 @@ class PackedGopDecoder(torch.nn.Module):
                                 mb_w, mb_h)
         if not self.deblocked:
             return y, cb, cr
-        pre = deblock_precompute_intra(
-            s["kind"], qp_y, sid, u8[..., 16], u8[..., 17].to(torch.int32)
-            - 12, u8[..., 18].to(torch.int32) - 12, mb_w, mb_h, self.c0,
-            self.c1, tabs)
+        pre = deblock_precompute(
+            s["kind"], s["qp_y"], s["sid"], u8[..., 16],
+            u8[..., 17].to(torch.int32) - 12, u8[..., 18].to(torch.int32)
+            - 12, mb_w, mb_h, self.c0, self.c1, tabs)
         return deblock(pack_params(pre), y, cb, cr, mb_w, mb_h)
+
+
+def wire_syntax(i16, u8, mb_w, mb_h, c0, c1, tabs):
+    """The syntax dict stage A and B2 read, from dense coefficient rows
+    i16 [F, n, 408] and the wire's per-MB bytes u8 [F, n, 19] (layout of
+    ``U8_STRIDE``): kind (the byte as shipped), qp_y/qp_cb/qp_cr, sid,
+    the intra modes, the coefficient fields and avail_a..d (a neighbour
+    is available iff it exists and shares the slice)."""
+    F, n = u8.shape[:2]
+    qp_y = u8[..., 1].to(torch.int32)
+    sid = u8[..., 14].to(torch.int32) | (u8[..., 15].to(torch.int32) << 8)
+    sid2 = sid.view(F, mb_h, mb_w)
+    # shifted-neighbour slice-id grids (-9 = outside the picture)
+    nbs = [torch.full_like(sid2, -9) for _ in range(4)]
+    nbs[0][:, :, 1:] = sid2[:, :, :-1]
+    nbs[1][:, 1:, :] = sid2[:, :-1, :]
+    nbs[2][:, 1:, :-1] = sid2[:, :-1, 1:]
+    nbs[3][:, 1:, 1:] = sid2[:, :-1, :-1]
+    m4n = u8[..., 4:12]
+    m8n = u8[..., 12:14]
+    s = {
+        "kind": u8[..., 0],
+        "qp_y": qp_y,
+        "qp_cb": chroma_qp(qp_y, c0, tabs["qpc_tab"]),
+        "qp_cr": chroma_qp(qp_y, c1, tabs["qpc_tab"]),
+        "sid": sid,
+        "i16_mode": u8[..., 2],
+        "chroma_mode": u8[..., 3],
+        "modes4": torch.stack([m4n & 15, m4n >> 4], -1).reshape(F, n, 16),
+        "modes8": torch.stack([m8n & 15, m8n >> 4], -1).reshape(F, n, 4),
+        "luma_lv": i16[..., :256],
+        "luma_dc": i16[..., 256:272],
+        "chroma_dc": i16[..., 272:280],
+        "chroma_ac": i16[..., 280:408],
+    }
+    for k, g in zip(("avail_a", "avail_b", "avail_c", "avail_d"), nbs):
+        s[k] = (g == sid2).reshape(F, n)
+    return s
 
 
 def _pcm_batch_rows(batch, sps, pps, F, n, n_threads):

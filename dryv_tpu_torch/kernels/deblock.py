@@ -1,11 +1,15 @@
-"""In-loop deblocking (spec 8.7) of all-intra pictures: the edge
-parameters, and kernel B3.
+"""In-loop deblocking (spec 8.7): the edge parameters, and kernel B3.
 
-``deblock_precompute_intra`` is the plain PyTorch port of
-``deblock_precompute_intra_jax`` (``dryv_tpu/kernels/deblock.py``):
-boundary strength, alpha, beta and tC0 per edge depend only on syntax.
-``pack_params`` lays them out as one uint8 row of 192 bytes per MB in
-``PRE_KEYS`` order.
+``deblock_precompute`` is the plain PyTorch port of
+``deblock_precompute_jax`` and ``_pair_bs_jax`` (``dryv_tpu/kernels/
+deblock.py``) over a batch of pictures: boundary strength, alpha, beta
+and tC0 per edge.  Without motion inputs it is
+``deblock_precompute_intra_jax`` (all-intra pictures: bS 4 on MB edges,
+3 inside); with them, the inter boundary strengths (1 and 2) come from
+coded-coefficient flags, motion vectors and reference keys per 4x4
+block.  The JAX package runs both in XLA, so this stays plain tensor
+code.  ``pack_params`` lays the parameters out as one uint8 row of 192
+bytes per MB in ``PRE_KEYS`` order.
 
 Kernel B3 (``csrc/deblock.cu``) replaces the Pallas kernel
 ``_build_db_kernel`` behind ``make_deblock_pallas``
@@ -38,38 +42,99 @@ PRM_BYTES = 192
 PARTS = ("luma", "chroma")
 
 
-def deblock_precompute_intra(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h,
-                             chroma_off0, chroma_off1, tables):
-    """All-intra edge parameters for a batch: kind/qp_y/sid/dis/offa/offb
-    are [F, n] integer tensors (the MB's slice's deblock control already
-    gathered per MB).  Returns the PRE_KEYS dict of int32 [F, n, ...]
-    tensors, laid out as ``deblock_precompute`` documents."""
-    F = kind.shape[0]
-    alpha_t, beta_t, tc0_t = tables["alpha"], tables["beta"], tables["tc0"]
+def _pair_bs(intra_p, intra_q, mb_edge, nz_p, nz_q, mv0p, mv1p, mv0q, mv1q,
+             rk0p, rk1p, rk0q, rk1q):
+    """Port of ``_pair_bs_jax``: boundary strength (8.7.2.1) of the 4x4
+    block pairs (p, q) across an edge, from intra flags, coded-coefficient
+    flags, motion vectors [..., 2] and reference keys (-1 unused)."""
+    def far(a, b):
+        return ((a - b).abs() >= 4).any(-1)
 
-    def grid(a):
-        return a.to(torch.int32).reshape(F, mb_h, mb_w)
+    np_cnt = (rk0p >= 0).to(torch.int32) + (rk1p >= 0).to(torch.int32)
+    nq_cnt = (rk0q >= 0).to(torch.int32) + (rk1q >= 0).to(torch.int32)
+    keys_differ = ((np_cnt != nq_cnt)
+                   | (torch.minimum(rk0p, rk1p) != torch.minimum(rk0q, rk1q))
+                   | (torch.maximum(rk0p, rk1p) != torch.maximum(rk0q, rk1q)))
+    far1 = far(torch.where((rk0p >= 0)[..., None], mv0p, mv1p),
+               torch.where((rk0q >= 0)[..., None], mv0q, mv1q))
+    fa = far(mv0p, mv0q) | far(mv1p, mv1q)
+    fx = far(mv0p, mv1q) | far(mv1p, mv0q)
+    mv_bs = torch.where(np_cnt == 1, far1, torch.where(
+        rk0p == rk1p, fa & fx, torch.where(rk0p == rk0q, fa, fx)))
+    bs = torch.where(keys_differ, 1, mv_bs.to(torch.int32))
+    bs = torch.where(nz_p | nz_q, 2, bs)
+    return torch.where(intra_p | intra_q, torch.where(mb_edge, 4, 3), bs)
+
+
+def deblock_precompute(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h,
+                       chroma_off0, chroma_off1, tables, t8=None, nz4=None,
+                       mv0=None, mv1=None, rk0=None, rk1=None):
+    """Edge parameters of a batch of F pictures: the plain PyTorch port of
+    ``deblock_precompute_jax``.
+
+    kind (the native numbering, intra 0..3 and 11) / qp_y / sid / dis /
+    offa / offb [F, n] per-MB integer tensors (dis/offa/offb: the MB's
+    slice's deblock control).  The inter inputs, all or none: t8 [F, n]
+    transform-8x8 flags, nz4 [F, H4, W4] coded-coefficient flags,
+    mv0/mv1 [F, H4, W4, 2], rk0/rk1 [F, H4, W4] reference keys or stack
+    slots (-1 = list unused; only equality matters).  Without them every
+    MB must be intra, as for ``deblock_precompute_intra_jax``: bS 4 on MB
+    edges and 3 inside.  Returns the PRE_KEYS dict of int32 [F, n, ...]
+    tensors."""
+    alpha_t, beta_t, tc0_t = tables["alpha"], tables["beta"], tables["tc0"]
+    dev = kind.device
+    F = kind.shape[0]
+    H4, W4 = 4 * mb_h, 4 * mb_w
+
+    def grid(a, shape=(mb_h, mb_w)):
+        return a.to(torch.int32).reshape((F,) + shape)
 
     kind = grid(kind)
     qpy = torch.where(kind == KIND_PCM, 0, grid(qp_y))
     sid, dis, offa, offb = grid(sid), grid(dis), grid(offa), grid(offb)
-    t8 = kind == KIND_I8
+    t8 = (kind == KIND_I8) | (False if t8 is None else grid(t8) != 0)
     qpc = [chroma_qp(qpy, chroma_off0, tables["qpc_tab"]),
            chroma_qp(qpy, chroma_off1, tables["qpc_tab"])]
 
-    def left(a, fill=0):
-        return torch.nn.functional.pad(a[:, :, :-1], (1, 0), value=fill)
+    def left(a, fill=0):        # along axis 2 of [F, rows, cols, ...]
+        pad = [0, 0] * (a.ndim - 3) + [1, 0]
+        return torch.nn.functional.pad(a[:, :, :-1], pad, value=fill)
 
-    def up(a, fill=0):
-        return torch.nn.functional.pad(a[:, :-1, :], (0, 0, 1, 0),
-                                       value=fill)
+    def up(a, fill=0):          # along axis 1
+        pad = [0, 0] * (a.ndim - 2) + [1, 0]
+        return torch.nn.functional.pad(a[:, :-1], pad, value=fill)
 
-    # all-intra: bS is 4 on MB edges and 3 inside
-    on_self = dis != 1
-    mx = torch.arange(mb_w, device=kind.device)[None, None, :]
-    my = torch.arange(mb_h, device=kind.device)[None, :, None]
-    on_v0 = on_self & (mx > 0) & ~((dis == 2) & (left(sid, -1) != sid))
-    on_h0 = on_self & (my > 0) & ~((dis == 2) & (up(sid, -1) != sid))
+    if nz4 is None:
+        # per MB: [edge, line segment]; every pair of blocks is intra.
+        # (Made on the device: a host list copied to a CUDA tensor would
+        # wait for the work queued before it.)
+        edge0 = torch.arange(4, device=dev) == 0
+        BSVg = BSHg = (3 + edge0.to(torch.int32))[:, None].expand(4, 4)
+    else:
+        intra_mb = (kind <= 3) | (kind == 11)
+        intra4 = intra_mb.repeat_interleave(4, 1).repeat_interleave(4, 2)
+        nz4 = nz4.reshape(F, H4, W4) != 0
+        mv0, mv1 = grid(mv0, (H4, W4, 2)), grid(mv1, (H4, W4, 2))
+        rk0, rk1 = grid(rk0, (H4, W4)), grid(rk1, (H4, W4))
+        mbe_v = (torch.arange(W4, device=dev) % 4 == 0)[None, :] \
+            .expand(H4, W4)
+        mbe_h = (torch.arange(H4, device=dev) % 4 == 0)[:, None] \
+            .expand(H4, W4)
+        BSV = _pair_bs(left(intra4, False), intra4, mbe_v, left(nz4, False),
+                       nz4, left(mv0), left(mv1), mv0, mv1, left(rk0, -1),
+                       left(rk1, -1), rk0, rk1)
+        BSH = _pair_bs(up(intra4, False), intra4, mbe_h, up(nz4, False), nz4,
+                       up(mv0), up(mv1), mv0, mv1, up(rk0, -1), up(rk1, -1),
+                       rk0, rk1)
+        # per MB: [edge, line segment]
+        BSVg = BSV.reshape(F, mb_h, 4, mb_w, 4).permute(0, 1, 3, 4, 2)
+        BSHg = BSH.reshape(F, mb_h, 4, mb_w, 4).permute(0, 1, 3, 2, 4)
+
+    on_self = (dis != 1).to(torch.int32)
+    mx = torch.arange(mb_w, device=dev)[None, None, :]
+    my = torch.arange(mb_h, device=dev)[None, :, None]
+    on_v0 = (on_self != 0) & (mx > 0) & ~((dis == 2) & (left(sid, -1) != sid))
+    on_h0 = (on_self != 0) & (my > 0) & ~((dis == 2) & (up(sid, -1) != sid))
 
     def idx_ab(qpav, off):
         return (qpav + off).clamp(0, 51).long()
@@ -77,27 +142,24 @@ def deblock_precompute_intra(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h,
     def tc0_of(ia, bs):
         return tc0_t[ia, (bs.clamp(1, 3) - 1).long()]
 
-    def luma_dir(on_e0, qp_nb):
+    def luma_dir(on_e0, qp_nb, BSg):
         qpav = (qp_nb + qpy + 1) >> 1
         ia0, ib0 = idx_ab(qpav, offa), idx_ab(qpav, offb)
         ia_i, ib_i = idx_ab(qpy, offa), idx_ab(qpy, offb)
-        on0 = on_e0.to(torch.int32)
-        oni = on_self.to(torch.int32)
-        not8 = (~t8).to(torch.int32)
-        # edges: 0 = MB boundary, 1..3 internal (8x8 keeps only edge 2)
-        bs_e = torch.stack([4 * on0, 3 * oni * not8, 3 * oni,
-                            3 * oni * not8], -1)             # [F,h,w,4]
-        bs = bs_e[..., None].expand(*bs_e.shape, 4)
+        onk = on_self * (~t8).to(torch.int32)
+        # per-edge enables: edge 0 = MB boundary; 8x8 keeps only edge 2
+        ons = torch.stack([on_e0.to(torch.int32), onk, on_self, onk], -1)
+        bs = BSg * ons[..., None]
         al = torch.stack([alpha_t[ia0]] + [alpha_t[ia_i]] * 3, -1)
         be = torch.stack([beta_t[ib0]] + [beta_t[ib_i]] * 3, -1)
         ia = torch.stack([ia0] + [ia_i] * 3, -1)
         return bs, tc0_of(ia[..., None], bs), al, be
 
-    def chroma_dir(on_e0, qpc_nb):
-        on0 = on_e0.to(torch.int32)
-        oni = on_self.to(torch.int32)
-        bs = torch.stack([(4 * on0)[..., None].expand(*on0.shape, 8),
-                          (3 * oni)[..., None].expand(*oni.shape, 8)],
+    rep = torch.arange(4, device=dev).repeat_interleave(2)
+
+    def chroma_dir(on_e0, qpc_nb, BSg):
+        bs = torch.stack([BSg[..., 0, :][..., rep] * on_e0[..., None],
+                          BSg[..., 2, :][..., rep] * on_self[..., None]],
                          -2)                                 # [F,h,w,2,8]
         al, be, tc = [], [], []
         for p in (0, 1):
@@ -106,19 +168,19 @@ def deblock_precompute_intra(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h,
             ia_i, ib_i = idx_ab(qpc[p], offa), idx_ab(qpc[p], offb)
             al.append(torch.stack([alpha_t[ia0], alpha_t[ia_i]], -1))
             be.append(torch.stack([beta_t[ib0], beta_t[ib_i]], -1))
-            ia = torch.stack([ia0, ia_i], -1)                # [F,h,w,2]
-            tc.append(tc0_of(ia[..., None], bs))
+            tc.append(tc0_of(torch.stack([ia0, ia_i], -1)[..., None], bs))
         return (bs, torch.stack(tc, -2), torch.stack(al, -1),
                 torch.stack(be, -1))
 
     out = {}
     out["bsv"], out["tc0v"], out["av"], out["bv"] = luma_dir(on_v0,
-                                                             left(qpy))
-    out["bsh"], out["tc0h"], out["ah"], out["bh"] = luma_dir(on_h0, up(qpy))
+                                                             left(qpy), BSVg)
+    out["bsh"], out["tc0h"], out["ah"], out["bh"] = luma_dir(on_h0, up(qpy),
+                                                             BSHg)
     out["bscv"], out["tc0cv"], out["acv"], out["bcv"] = chroma_dir(
-        on_v0, [left(q) for q in qpc])
+        on_v0.to(torch.int32), [left(q) for q in qpc], BSVg)
     out["bsch"], out["tc0ch"], out["ach"], out["bch"] = chroma_dir(
-        on_h0, [up(q) for q in qpc])
+        on_h0.to(torch.int32), [up(q) for q in qpc], BSHg)
     n = mb_w * mb_h
     return {k: v.reshape((F, n) + tuple(v.shape[3:])).to(torch.int32)
             for k, v in out.items()}

@@ -105,6 +105,8 @@ for _q in range(4):
         for _dx in range(8):
             Q2SP[64 * _q + 8 * _dy + _dx] = \
                 16 * (8 * (_q >> 1) + _dy) + 8 * (_q & 1) + _dx
+SP2Z = np.argsort(Z2SP)     # spatial 16*y + x -> z-row
+SP2Q = np.argsort(Q2SP)     # spatial -> I8 quadrant row
 
 # deblock edge-parameter keys, in the order the B3 parameter rows pack them
 PRE_KEYS = ["bsv", "tc0v", "av", "bv", "bsh", "tc0h", "ah", "bh",

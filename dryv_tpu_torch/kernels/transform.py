@@ -22,10 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..coeffs import KIND_I8, KIND_I16
-from ..avc.neighbors import ZSCAN_4X4_POS
-
-# z-scan 4x4 block -> raster position 4*by + bx of its DC value
-_Z2P = [4 * y + x for (x, y) in ZSCAN_4X4_POS]
+from ..tables import index_on
 
 
 def _scale(prod, shift, base, rnd_max):
@@ -118,7 +115,8 @@ def luma_residual_zrows(kind, qp, Z, luma_dc, ls4, ls8):
     # each z-block's coefficient 0, past the dequantisation
     D4 = dequant4(Z.reshape(M * 16, 16), qp.repeat_interleave(16),
                   ls4).reshape(M, 16, 16)
-    dcz = i16_dc(luma_dc, qp, ls4)[:, _Z2P]                   # [M,16]
+    # z-scan 4x4 block -> raster position of its DC value
+    dcz = i16_dc(luma_dc, qp, ls4)[:, index_on("z2p", Z.device)]  # [M,16]
     is16 = (kind == KIND_I16)[:, None]
     D4 = torch.cat([torch.where(is16, dcz, D4[:, :, 0])[..., None],
                     D4[:, :, 1:]], dim=-1)
@@ -127,6 +125,17 @@ def luma_residual_zrows(kind, qp, Z, luma_dc, ls4, ls8):
     D8 = dequant8(Z.reshape(M * 4, 64), qp.repeat_interleave(4), ls8)
     R8 = idct8(D8.reshape(M, 4, 8, 8)).reshape(M, 256)
     return torch.where((kind == KIND_I8)[:, None], R8, R4)
+
+
+def luma_residual_raster(y_z, kind):
+    """Luma residual rows in storage order (``luma_residual_zrows``) ->
+    raster rows [..., 256] (16*y + x), the layout of the JAX package's
+    ``luma_residual_tiles`` that inter MBs add to their prediction.
+    kind [...] picks the I8 quadrant rows (Q2SP) or the z-rows (Z2SP)."""
+    dev = y_z.device
+    return torch.where((kind == KIND_I8)[..., None],
+                       y_z[..., index_on("sp2q", dev)],
+                       y_z[..., index_on("sp2z", dev)])
 
 
 def chroma_residual_tiles(qp_cb, qp_cr, chroma_dc_lv, chroma_ac, ls4cb,

@@ -26,20 +26,17 @@ Output: uint8 planes y [F, 16*mb_h, 16*mb_w], cb, cr [F, 8*mb_h, 8*mb_w].
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..avc.neighbors import ZSCAN_4X4_POS
 from ..coeffs import KIND_I8, KIND_I16, KIND_PCM
 
 from .. import _build
-from .geometry import Q2SP, Z2SP, diag_schedule
+from ..tables import index_on
+from .geometry import diag_schedule
 
 META_ROWS = 32
 ROW_KIND, ROW_I16M, ROW_CMODE, ROW_AV, ROW_M4, ROW_M8 = 0, 1, 2, 3, 7, 23
-
-_SP2Z = np.argsort(Z2SP)     # spatial 16*y + x -> z-row
-_SP2Q = np.argsort(Q2SP)     # spatial -> I8 quadrant row
 
 
 def recon_inputs(s, y_z, c_resid):
@@ -63,8 +60,8 @@ def recon_inputs(s, y_z, c_resid):
     cres = c_resid.clamp(-255, 255).to(torch.int16)
     if "pcm_y" in s:
         pcm = (s["kind"] == KIND_PCM)
-        z2sp = torch.as_tensor(Z2SP, dtype=torch.long, device=dev)
-        pcm_z = s["pcm_y"].reshape(F, n, 256)[..., z2sp].to(torch.int16)
+        pcm_z = s["pcm_y"].reshape(F, n, 256)[..., index_on("z2sp", dev)] \
+            .to(torch.int16)
         yres = torch.where(pcm[..., None], pcm_z, yres)
         cres = torch.where(pcm[..., None, None, None],
                            s["pcm_c"].reshape(F, n, 2, 8, 8)
@@ -183,12 +180,12 @@ def _recon_luma(Wn, m, r, avt, tables):
                                                                     16),
                                   torch.where(mode == 2, dc[:, None, None],
                                               plane))).reshape(M, 256)
-    sp2z = torch.as_tensor(_SP2Z, device=Wn.device)
+    sp2z = index_on("sp2z", Wn.device)
     r_sp = r[:, sp2z]
     o16 = (p16 + r_sp).clamp(0, 255)
 
     kind = m[:, ROW_KIND][:, None]
-    sp2q = torch.as_tensor(_SP2Q, device=Wn.device)
+    sp2q = index_on("sp2q", Wn.device)
     return torch.where(kind == KIND_PCM, r_sp, torch.where(
         kind == KIND_I16, o16, torch.where(kind == KIND_I8, o8[:, sp2q],
                                            o4[:, sp2z])))

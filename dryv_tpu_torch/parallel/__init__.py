@@ -1,19 +1,20 @@
 """Multi-device decode of the port (counterpart of ``dryv_tpu/parallel``):
 a mesh of torch devices driven by one process, frame-parallel GOP decode
-over its "gop" axis, and band-parallel intra reconstruction with halo
-exchange (kernel B2b) over its "band" axis."""
+over its "gop" axis, band-parallel intra reconstruction with halo
+exchange (kernel B2b) over its "band" axis, and banded P recon
+(reference-row aprons between bands, kernel B4)."""
 from __future__ import annotations
 
 import numpy as np
 
 from .bands import (make_banded_frame_fn, make_banded_gop_fn,
-                    make_banded_wavefront_fn)
+                    make_banded_p_recon_fn, make_banded_wavefront_fn)
 from .gop import decode_gop_sharded
 from .mesh import Mesh, make_mesh
 
 __all__ = ["Mesh", "make_mesh", "decode_gop_sharded", "make_banded_frame_fn",
            "make_banded_wavefront_fn", "make_banded_gop_fn",
-           "dryrun_multichip"]
+           "make_banded_p_recon_fn", "dryrun_multichip"]
 
 
 def _tiny_stream(n_pics: int = 2) -> bytes:

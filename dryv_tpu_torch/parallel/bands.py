@@ -1,17 +1,20 @@
-"""Band-sharded intra reconstruction with halo exchange.
+"""Band-sharded reconstruction with halo exchange.
 
-Counterpart of ``dryv_tpu/parallel/bands.py`` (intra; the banded P
-recon ``make_banded_p_recon_fn`` needs motion compensation and waits for
-the I/P/B slice).  A picture's MB rows split into contiguous bands over
-the mesh "band" axis.  Frames pipeline through the bands: at step t,
-band b reconstructs frame group t - b with one launch of kernel B2b and
-sends its bottom luma row and bottom chroma rows to band b + 1, whose
-first MB row reads them as its above, above-right and corner aprons at
-step t + 1.  Each band's slot runs on a CUDA stream of its own; the
-halo copy is ordered by a CUDA event that the next band's stream waits
-on, so on one card the bands overlap and on several the copy goes peer
-to peer.  Intra without the in-loop filter: filtering across a band
-boundary needs a back-edge fixup, as the JAX version says.
+Counterpart of ``dryv_tpu/parallel/bands.py``.  A picture's MB rows
+split into contiguous bands over the mesh "band" axis.  Frames pipeline
+through the bands: at step t, band b reconstructs frame group t - b with
+one launch of kernel B2b and sends its bottom luma row and bottom chroma
+rows to band b + 1, whose first MB row reads them as its above,
+above-right and corner aprons at step t + 1.  Each band's slot runs on a
+CUDA stream of its own; the halo copy is ordered by a CUDA event that the
+next band's stream waits on, so on one card the bands overlap and on
+several the copy goes peer to peer.  Intra without the in-loop filter:
+filtering across a band boundary needs a back-edge fixup, as the JAX
+version says.
+
+``make_banded_p_recon_fn`` is the banded P recon: each band receives an
+apron of reference rows from its neighbours and runs motion compensation
+(kernel B4) and the residual add on its own rows.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..kernels.inter import mc_frame
 from ..pipeline import recon_syntax, tables_for
 from ..syntax import stack_frames, syntax_tensors
 from .mesh import fork_streams, join_streams, on_stream, slot_streams
@@ -163,18 +167,26 @@ class BandedGop:
         return tuple(out)
 
 
+def _copy(t, to, src, dst):
+    """t copied to device `to` on the current stream, `src` (None on the
+    CPU), and the CUDA event (None on the CPU) after which stream `dst`
+    may read the copy."""
+    out = t.to(to, non_blocking=True)
+    if src is None:
+        return out, None
+    out.record_stream(dst)
+    ev = torch.cuda.Event()
+    ev.record(src)
+    return out, ev
+
+
 def _send(y, cb, cr, to, src_stream, dst_stream):
     """Band planes -> (bottom luma row [Fi, W], bottom chroma rows [Fi,
     2, W/2]) on device `to`, and the CUDA event (None on the CPU) after
     which `dst_stream` may read them."""
-    hy = y[:, -1].contiguous().to(to, non_blocking=True)
-    hc = torch.stack([cb[:, -1], cr[:, -1]], 1).to(to, non_blocking=True)
-    if src_stream is None:
-        return (hy, hc), None
-    for h in (hy, hc):
-        h.record_stream(dst_stream)
-    ev = torch.cuda.Event()
-    ev.record(src_stream)
+    hy, _ = _copy(y[:, -1].contiguous(), to, src_stream, dst_stream)
+    hc, ev = _copy(torch.stack([cb[:, -1], cr[:, -1]], 1), to, src_stream,
+                   dst_stream)
     return (hy, hc), ev
 
 
@@ -196,3 +208,129 @@ def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band"):
 
 
 make_banded_wavefront_fn = make_banded_frame_fn   # the JAX package's name
+
+
+def _hop(t, to, src, dst):
+    """``_copy`` of t on stream `src`; stream `dst` waits for the copy
+    before its later work reads the result."""
+    with on_stream(src):
+        out, ev = _copy(t, to, src, dst)
+    if ev is not None:
+        dst.wait_event(ev)
+    return out
+
+
+def _extend(planes, a, total, devs, streams):
+    """Each band's extended plane: band b's rows with `a` rows above and
+    below, rows outside the picture replicating its edge rows, so that a
+    clamp inside the extended plane is the global clamp.  planes[b] is
+    band b's [rows, W] on devs[b]; the apron rows come from the
+    neighbours in ceil(a / rows) chained hops (each band forwards what it
+    received), each ordered by an event on the receiving slot's stream,
+    as ``make_banded_gop_fn`` orders its halos."""
+    B = len(planes)
+    rows = planes[0].shape[0]
+    above = [[] for _ in range(B)]
+    below = [[] for _ in range(B)]
+    cur_d, cur_u = list(planes), list(planes)
+    for _ in range(-(-a // rows)):
+        nxt_d, nxt_u = [None] * B, [None] * B
+        for b in range(B):
+            if b + 1 < B and cur_d[b] is not None:
+                nxt_d[b + 1] = _hop(cur_d[b], devs[b + 1], streams[b],
+                                    streams[b + 1])
+                above[b + 1].insert(0, nxt_d[b + 1])
+            if b > 0 and cur_u[b] is not None:
+                nxt_u[b - 1] = _hop(cur_u[b], devs[b - 1], streams[b],
+                                    streams[b - 1])
+                below[b - 1].append(nxt_u[b - 1])
+        cur_d, cur_u = nxt_d, nxt_u
+    out = []
+    for b in range(B):
+        with on_stream(streams[b]):
+            rows_b = torch.cat(above[b] + [planes[b]] + below[b])
+            start = (b - len(above[b])) * rows
+            g = torch.arange(rows + 2 * a, device=devs[b]) + b * rows - a
+            out.append(rows_b[g.clamp(0, total - 1) - start])
+    return out
+
+
+def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
+                           axis: str = "band"):
+    """Banded P recon: returns run(ref_y, ref_cb, ref_cr, mv [n4,2], rs
+    [n4], y_resid [n,16,16], c_resid [n,2,8,8], device_out=False) ->
+    (y, cb, cr) uint8 planes for a single-reference P picture with no
+    intra MBs (blocks with rs < 0 predict 0).
+
+    Counterpart of ``dryv_tpu/parallel/bands.py`` :293-407.  MB rows
+    split evenly over the mesh's `axis`; each band receives `apron`
+    reference rows from each neighbour band (``_extend``: chained hops
+    when the apron exceeds a band's height), remapped so that the clamp
+    inside its extended plane is the global one, then runs B4 on that
+    plane (its block rows offset by apron / 4) and the residual add on its
+    own slot's stream.  The vertical reach of the vectors (integer rows
+    plus the 6-tap margin) must stay within the apron: run() asserts it,
+    as the JAX version does.  Planes come back numpy, or with device_out
+    tensors on the first band's device."""
+    devs = mesh.axis_devices(axis)
+    B = len(devs)
+    if mb_h % B:
+        raise ValueError("bands must split MB rows evenly")
+    hb = mb_h // B
+    A = apron
+    streams = slot_streams(devs)
+
+    def run(ref_y, ref_cb, ref_cr, mv, rs, y_resid, c_resid,
+            device_out=False):
+        mv = np.asarray(mv)
+        reach = int(np.max(np.abs(mv[:, 1]))) // 4 + 9
+        assert reach <= A, f"vertical MV reach {reach} exceeds apron {A}"
+        n4l = 16 * hb * mb_w
+        nl = hb * mb_w
+        refs = [np.asarray(p, np.uint8) for p in (ref_y, ref_cb, ref_cr)]
+        mv16 = np.ascontiguousarray(mv, np.int16)
+        slot = np.where(np.asarray(rs) >= 0, 0, -1).astype(np.int8)
+        yr = np.asarray(y_resid, np.int32)
+        cr_ = np.asarray(c_resid, np.int32)
+        fork_streams(devs, streams)
+        band = []
+        for b, (dev, st) in enumerate(zip(devs, streams)):
+            with on_stream(st):
+                ps = [torch.from_numpy(p[b * len(p) // B:(b + 1) * len(p)
+                                         // B]).to(dev) for p in refs]
+                band.append(ps + [torch.from_numpy(
+                    a[b * k:(b + 1) * k]).to(dev) for a, k in (
+                        (mv16, n4l), (slot, n4l), (yr, nl), (cr_, nl))])
+        ext = [_extend([bd[p] for bd in band], a, len(refs[p]), devs,
+                       streams) for p, a in ((0, A), (1, A // 2),
+                                             (2, A // 2))]
+        parts = []
+        for b, (dev, st) in enumerate(zip(devs, streams)):
+            with on_stream(st):
+                mvb, sb, yrb, crb = band[b][3:]
+                py, pc = mc_frame(ext[0][b][None], ext[1][b][None],
+                                  ext[2][b][None], sb, None, mvb, None,
+                                  {"mode": 0}, mb_w, hb, row0=A // 4)
+                ty = (py.to(torch.int32) + yrb).clamp(0, 255) \
+                    .to(torch.uint8)
+                tc = (pc.to(torch.int32) + crb).clamp(0, 255) \
+                    .to(torch.uint8)
+                parts.append((
+                    ty.view(hb, mb_w, 16, 16).permute(0, 2, 1, 3)
+                    .reshape(16 * hb, 16 * mb_w),
+                    tc[:, 0].reshape(hb, mb_w, 8, 8).permute(0, 2, 1, 3)
+                    .reshape(8 * hb, 8 * mb_w),
+                    tc[:, 1].reshape(hb, mb_w, 8, 8).permute(0, 2, 1, 3)
+                    .reshape(8 * hb, 8 * mb_w)))
+        join_streams(devs, streams)
+        out = []
+        for p in range(3):
+            for b in range(B):
+                if streams[b] is not None:
+                    parts[b][p].record_stream(
+                        torch.cuda.current_stream(devs[b]))
+            full = torch.cat([parts[b][p].to(devs[0]) for b in range(B)])
+            out.append(full if device_out else full.cpu().numpy())
+        return tuple(out)
+
+    return run

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels.deblock import deblock, deblock_precompute_intra, pack_params
+from .kernels.deblock import deblock, deblock_precompute, pack_params
 from .kernels.geometry import LS4_FLAT, LS8_FLAT
 from .kernels.transform import stage_a_residuals
 from .kernels.wavefront import intra_recon, recon_inputs
@@ -140,7 +140,7 @@ def deblock_pre_of(fs, slice_id, headers, pps, device):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)[None]
 
     ctl = _dbctl_of(headers)[slice_id]
-    return deblock_precompute_intra(
+    return deblock_precompute(
         t(fs.kind), t(fs.qp_y), t(slice_id), t(ctl[:, 0]), t(ctl[:, 1]),
         t(ctl[:, 2]), fs.mb_w, fs.mb_h, pps.chroma_qp_index_offset,
         pps.second_chroma_qp_offset, tables_for(device))

@@ -11,11 +11,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from functools import lru_cache
+
+from .avc.neighbors import ZSCAN_4X4_POS
 from .kernels.geometry import (BLK4_A, BLK4_B, BLK4_C, BLK8_A, BLK8_B,
-                               BLK8_C, BLK8_D, LS4_FLAT, LS8_FLAT)
+                               BLK8_C, BLK8_D, LS4_FLAT, LS8_FLAT, SP2Q,
+                               SP2Z, Z2SP)
 from .kernels.pred_tables import tables_4x4, tables_8x8
 from .refimpl.deblock import ALPHA, BETA, TC0
 from .refimpl.transform import QPC_TAB
+
+
+# permutations the device paths index with: z-scan 4x4 block -> raster
+# position 4*by + bx ("z2p"; its inverse "p2z"), and the luma residual
+# row orders of kernels.geometry
+_INDEX = {"z2p": np.asarray([4 * y + x for (x, y) in ZSCAN_4X4_POS]),
+          "z2sp": Z2SP, "sp2z": SP2Z, "sp2q": SP2Q}
+_INDEX["p2z"] = np.argsort(_INDEX["z2p"])
+
+
+@lru_cache(maxsize=None)
+def index_on(name: str, device) -> torch.Tensor:
+    """The permutation `name` of ``_INDEX`` as a long tensor on `device`,
+    made once per device: a fresh copy from host memory would wait for
+    the work already queued on the device."""
+    return torch.as_tensor(_INDEX[name], dtype=torch.long, device=device)
 
 
 def chroma_qp(qp, off, qpc_tab):

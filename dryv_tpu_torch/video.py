@@ -1,7 +1,6 @@
 """MP4 facade of the port: demux with the port's own container layer, and
-decoding routed as ``dryv_tpu.video.Video.decode_frames(backend="jax")``
-routes it: the batched GOP pipeline with stage timers, the per-picture
-path without.  The demux (``__init__``, the info properties and
+decoding routed by backend as ``dryv_tpu.video.Video.decode_frames``
+routes it.  The demux (``__init__``, the info properties and
 ``annexb_stream``) follows ``dryv_tpu/video.py``."""
 from __future__ import annotations
 
@@ -12,6 +11,8 @@ from .container import MP4File
 from .container.atoms import VIDEO_CODECS
 from .gop_pipeline import decode_annexb_gop_pipelined
 from .pipeline import decode_annexb_fast
+
+BACKENDS = ("torch", "device-ipb", "native", "scalar")
 
 
 class TorchVideo:
@@ -58,23 +59,43 @@ class TorchVideo:
         return to_annexb(nals)
 
     def decode_frames(self, max_frames: int = 1, device="cuda",
-                      timers=None):
-        """Decode the first `max_frames` pictures (0 = all) on `device`,
-        in display (POC) order.  With `timers` (a
-        ``utils.obs.StageTimers``) the batched pipeline decodes the whole
-        stream and the demux and pipeline stages are accumulated for
-        --stats; without, ``pipeline.decode_annexb_fast`` decodes the
-        first `max_frames` pictures."""
+                      timers=None, backend: str = "torch"):
+        """Decode the first `max_frames` pictures (0 = all), in display
+        (POC) order.  Backends, as ``Video.decode_frames``'s:
+
+        - "torch" (the JAX package's "jax"): on `device`, with `timers` (a
+          ``utils.obs.StageTimers``) the batched pipeline decoding the
+          whole stream with its demux and pipeline stages accumulated for
+          --stats, without it ``pipeline.decode_annexb_fast``;
+        - "device-ipb": the packed I/P/B path on `device`
+          (``device_ipb_packed.decode_annexb_device_packed``);
+        - "native": the C++ host decoder (``native.full``);
+        - "scalar": the Python reference decoder."""
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} is not one of "
+                             f"{', '.join(BACKENDS)}")
         stage = (timers.stage if timers is not None
                  else lambda _name: contextlib.nullcontext())
         with stage("demux"):
             stream = self.annexb_stream()
-        if timers is None:
-            frames = decode_annexb_fast(stream, max_frames=max_frames,
-                                        device=device)
-        else:
+        if backend == "torch" and timers is not None:
             frames = decode_annexb_gop_pipelined(stream, device=device,
                                                  timers=timers)
             if max_frames:
                 frames = frames[:max_frames]
+            return sorted(frames, key=lambda f: f.poc)
+        with stage("decode"):
+            if backend == "torch":
+                frames = decode_annexb_fast(stream, max_frames=max_frames,
+                                            device=device)
+            elif backend == "device-ipb":
+                from .device_ipb_packed import decode_annexb_device_packed
+                frames = decode_annexb_device_packed(
+                    stream, max_frames=max_frames, device=device)
+            elif backend == "native":
+                from .native.full import decode_annexb_native
+                frames = decode_annexb_native(stream, max_frames=max_frames)
+            else:
+                from .decoder import decode_annexb_scalar
+                frames = decode_annexb_scalar(stream, max_frames=max_frames)
         return sorted(frames, key=lambda f: f.poc)

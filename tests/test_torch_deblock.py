@@ -1,14 +1,16 @@
-"""The port's deblock precompute equals deblock_precompute_intra_jax, the
-plain in-place filter (B3's twin) applied after the plain wavefront
-equals the Pallas recon + deblock kernels in interpret mode, and B3's
-persistent schedule, replayed MB by MB through the plain per-MB step,
-gives the plain filter's planes."""
+"""The port's deblock precompute equals deblock_precompute_intra_jax on
+all-intra batches and, for intra and inter pictures,
+deblock_precompute_jax and the numpy deblock_precompute; the plain in-place filter (B3's twin) applied after
+the plain wavefront equals the Pallas recon + deblock kernels in
+interpret mode, and B3's persistent schedule, replayed MB by MB through
+the plain per-MB step, gives the plain filter's planes, on intra edge
+parameters and on inter ones (bS 1 and 2, changing along an edge)."""
 import numpy as np
 import pytest
 import torch
 
 from dryv_tpu_torch.kernels.deblock import (deblock, deblock_plain,
-                                            deblock_precompute_intra,
+                                            deblock_precompute,
                                             deblock_tickets, filter_mbs,
                                             pack_params, pad_planes,
                                             unpad_planes)
@@ -36,7 +38,7 @@ def test_precompute_matches_jax(geom):
     offa = (2 * rng.integers(-6, 7, (F, n))).astype(np.int32)
     offb = (2 * rng.integers(-6, 7, (F, n))).astype(np.int32)
     c0, c1 = 2, -3
-    got = deblock_precompute_intra(*(torch.from_numpy(a) for a in (
+    got = deblock_precompute(*(torch.from_numpy(a) for a in (
         kind, qp, sid, dis, offa, offb)), mb_w, mb_h, c0, c1,
         decoder_tables("cpu"))
     for f in range(F):
@@ -46,6 +48,85 @@ def test_precompute_matches_jax(geom):
         for k in PRE_KEYS:
             np.testing.assert_array_equal(got[k][f].numpy(),
                                           np.asarray(ref[k]), err_msg=k)
+
+
+def _inter_picture(rng, mb_w, mb_h):
+    """Per-MB syntax of a random I/P/B picture (native kinds, intra 0..3
+    and 11, inter 4..10) and its motion field: coded flags, small vectors
+    so that both sides of the |dv| >= 4 test occur, reference keys -1..2
+    per list."""
+    n = mb_w * mb_h
+    H4, W4 = 4 * mb_h, 4 * mb_w
+    kind = rng.choice([0, 1, 2, 4, 5, 6, 7, 8, 9, 10, 11], n)
+    qp = rng.integers(0, 52, n)
+    sid = np.sort(rng.integers(0, 3, n))
+    ctl = np.stack([rng.integers(0, 3, 3), 2 * rng.integers(-6, 7, 3),
+                    2 * rng.integers(-6, 7, 3)], 1)
+    t8 = rng.integers(0, 2, n)
+    nz4 = rng.random((H4, W4)) < 0.3
+    mv0, mv1 = rng.integers(-6, 7, (2, H4, W4, 2))
+    rk0, rk1 = rng.integers(-1, 3, (2, H4, W4))
+    return [a.astype(np.int32) for a in (kind, qp, sid, ctl, t8)] + [
+        nz4] + [a.astype(np.int32) for a in (mv0, mv1, rk0, rk1)]
+
+
+def _inter_pre(pics, mb_w, mb_h, c0=2, c1=-3, motion=True):
+    """``deblock_precompute`` of a batch of ``_inter_picture``s; without
+    `motion` it is given no inter inputs."""
+    kind, qp, sid, ctl, t8, nz4, mv0, mv1, rk0, rk1 = [
+        np.stack(a) for a in zip(*pics)]
+    per_mb = [np.take_along_axis(ctl[..., i], sid, 1) for i in range(3)]
+    inter = [torch.from_numpy(a) for a in (t8, nz4, mv0, mv1, rk0, rk1)]
+    return deblock_precompute(
+        *(torch.from_numpy(a) for a in (kind, qp, sid, *per_mb)),
+        mb_w, mb_h, c0, c1, decoder_tables("cpu"), *(inter if motion else ()))
+
+
+@pytest.mark.parametrize("geom", [(1, 1), (5, 3), (8, 6)])
+def test_precompute_inter_matches_jax(geom):
+    import jax.numpy as jnp
+    from dryv_tpu.kernels.deblock import (deblock_precompute as host_pre,
+                                          deblock_precompute_jax)
+
+    mb_w, mb_h = geom
+    rng = np.random.default_rng(7 * mb_w + mb_h)
+    pics = [_inter_picture(rng, mb_w, mb_h) for _ in range(3)]
+    batch = _inter_pre(pics, mb_w, mb_h)
+    for f, pic in enumerate(pics):
+        kind, qp, sid, ctl, t8, nz4, mv0, mv1, rk0, rk1 = pic
+        got = {k: v[f] for k, v in batch.items()}
+        ref = deblock_precompute_jax(
+            *(jnp.asarray(a) for a in (kind, qp, sid, ctl[sid, 0],
+                                       ctl[sid, 1], ctl[sid, 2])),
+            mb_w, mb_h, 2, -3, *(jnp.asarray(a) for a in (
+                t8, nz4, mv0, mv1, rk0, rk1)))
+        host = host_pre(kind, qp, sid, ctl, mb_w, mb_h, 2, -3, t8, nz4, mv0,
+                        mv1, rk0, rk1)
+        for k in PRE_KEYS:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]),
+                                          err_msg=k)
+            np.testing.assert_array_equal(got[k].numpy(), host[k], err_msg=k)
+    if mb_w > 1:
+        assert set(np.unique(got["bsv"].numpy())) == {0, 1, 2, 3, 4}
+
+
+@pytest.mark.parametrize("geom", [(1, 1), (5, 3), (8, 6)])
+def test_precompute_ignores_motion_on_intra_pictures(geom):
+    """All-intra pictures: the inter inputs (random coded flags, vectors
+    and keys) change no parameter, so the batched intra paths may leave
+    them out."""
+    mb_w, mb_h = geom
+    rng = np.random.default_rng(11 * mb_w + mb_h)
+    pics = [_inter_picture(rng, mb_w, mb_h) for _ in range(3)]
+    for pic in pics:
+        pic[0] = rng.choice([0, 1, 2, 3, 11], mb_w * mb_h).astype(np.int32)
+        pic[4][:] = 0
+    got = _inter_pre(pics, mb_w, mb_h, motion=False)
+    want = _inter_pre(pics, mb_w, mb_h)
+    for k in PRE_KEYS:
+        assert torch.equal(got[k], want[k]), k
+    if mb_w > 1:
+        assert set(np.unique(got["bsv"].numpy())) == {0, 3, 4}
 
 
 @pytest.mark.parametrize("geom,F", [((8, 6), 2), ((5, 3), 4), ((1, 1), 1)])
@@ -84,10 +165,15 @@ def _smooth_planes(rng, mb_w, mb_h, F):
 
 def _params(rng, which, mb_w, mb_h, F):
     """Packed edge parameters: "all_on" (every edge of the picture's
-    interior on, one slice) or "slices" (sorted random slice ids with
+    interior on, one slice), "slices" (sorted random slice ids with
     disable_deblocking_filter_idc 0/1/2 per MB: bS-0 slice edges and
-    whole MBs left unfiltered)."""
+    whole MBs left unfiltered) or "inter" (random I/P/B pictures through
+    ``deblock_precompute``: bS 0..4, changing from one 4-line segment to
+    the next along an edge)."""
     n = mb_w * mb_h
+    if which == "inter":
+        return pack_params(_inter_pre(
+            [_inter_picture(rng, mb_w, mb_h) for _ in range(F)], mb_w, mb_h))
     kind = rng.integers(0, 4, (F, n)).astype(np.int32)
     if which == "all_on":
         pre = _random_pre(rng, {"kind": kind}, mb_w, mb_h, F)
@@ -97,7 +183,7 @@ def _params(rng, which, mb_w, mb_h, F):
     dis = rng.integers(0, 3, (F, n)).astype(np.int32)
     offa = (2 * rng.integers(-6, 7, (F, n))).astype(np.int32)
     offb = (2 * rng.integers(-6, 7, (F, n))).astype(np.int32)
-    return pack_params(deblock_precompute_intra(
+    return pack_params(deblock_precompute(
         *(torch.from_numpy(a) for a in (kind, qp, sid, dis, offa, offb)),
         mb_w, mb_h, 2, -3, decoder_tables("cpu")))
 
@@ -189,7 +275,7 @@ def _replay_b3(prm, y, cb, cr, mb_w, mb_h, n_walkers, seed):
 
 
 @pytest.mark.parametrize("n_walkers", [1, 3, 132])
-@pytest.mark.parametrize("params", ["all_on", "slices"])
+@pytest.mark.parametrize("params", ["all_on", "slices", "inter"])
 @pytest.mark.parametrize("geom,F", [((8, 6), 2), ((5, 3), 4), ((1, 1), 1)])
 def test_b3_schedule_replay_matches_plain(geom, F, params, n_walkers):
     mb_w, mb_h = geom

@@ -152,3 +152,22 @@ def test_decoder_tables():
         np.testing.assert_array_equal(
             chroma_qp(torch.as_tensor(qp), off, t["qpc_tab"]).numpy(),
             _qpc_vec(qp, off))
+
+
+def test_ipb_wire_copies():
+    """The packed I/P/B wire format of the port equals the JAX path's."""
+    from dryv_tpu import device_ipb_packed as jip
+    from dryv_tpu_torch import device_ipb_packed as tip
+
+    assert tip._IPB_SPEC == jip._IPB_SPEC
+    for caps in ((8192, 8160, 130560, 32, 1024, 256),
+                 (128, 24, 384, 96, 2048, 512), (128, 1, 16, 256, 1024, 256)):
+        assert tip._shapes(*caps) == jip._shapes(*caps)
+        assert tip._layout(*caps) == jip._layout(*caps)
+        blob, views = tip._alloc(*caps)
+        jblob, jviews = jip._alloc(*caps)
+        np.testing.assert_array_equal(blob, jblob)
+        assert views.keys() == jviews.keys()
+        for k in views:
+            assert views[k].dtype == jviews[k].dtype
+            np.testing.assert_array_equal(views[k], jviews[k])

@@ -40,7 +40,9 @@ def test_modules_cover_the_host_copies():
               "dryv_tpu_torch.encoder.intra_encoder",
               "dryv_tpu_torch.testing.sources", "dryv_tpu_torch.utils.obs",
               "dryv_tpu_torch.kernels.pred_tables",
-              "dryv_tpu_torch.container.atoms", "dryv_tpu_torch.video"):
+              "dryv_tpu_torch.container.atoms", "dryv_tpu_torch.video",
+              "dryv_tpu_torch.device_ipb_packed",
+              "dryv_tpu_torch.kernels.inter"):
         assert m in MODULES
 
 
@@ -98,6 +100,57 @@ def test_decode_with_dryv_tpu_and_jax_blocked(tmp_path):
             np.testing.assert_array_equal(got[f"{k}_{plane}"], g)
 
 
+def test_ipb_decode_with_dryv_tpu_and_jax_blocked(tmp_path):
+    """An encoder-made I/P/B stream (in-loop filter on) decodes through
+    the packed device path on the CPU in a process where ``dryv_tpu`` and
+    jax cannot load, equal to the libavcodec oracle."""
+    from dryv_tpu.testing.oracle import decode_annexb
+
+    stream = _ipb_stream()
+    (tmp_path / "s.264").write_bytes(stream)
+    _run("import sys\n"
+         "sys.modules['dryv_tpu'] = None\n"
+         "sys.modules['jax'] = None\n"
+         "import numpy as np\n"
+         "from dryv_tpu_torch.device_ipb_packed import "
+         "decode_annexb_device_packed as d\n"
+         f"s = open({str(tmp_path / 's.264')!r}, 'rb').read()\n"
+         "fr = sorted(d(s, device='cpu'), key=lambda f: f.poc)\n"
+         "assert d.host_calls == 0\n"
+         f"np.savez({str(tmp_path / 'out.npz')!r}, "
+         "**{f'{p}{i}': getattr(f, p) for i, f in enumerate(fr) "
+         "for p in ('y', 'cb', 'cr')})\n"
+         "bad = [m for m, v in sys.modules.items() if v is not None "
+         "and m.split('.')[0] in ('dryv_tpu', 'jax', 'jaxlib')]\n"
+         "assert not bad, bad\n")
+    got = np.load(tmp_path / "out.npz")
+    ref = decode_annexb(stream)
+    assert len(got.files) == 3 * len(ref) == 9
+    for i, planes in enumerate(ref):
+        for p, r in zip(("y", "cb", "cr"), planes):
+            np.testing.assert_array_equal(got[f"{p}{i}"], r)
+
+
+def _ipb_stream():
+    """I, P and B pictures of 6x4 MBs from the JAX package's encoder, the
+    in-loop filter on (tests/test_device_ipb_packed.py's sequence)."""
+    from dryv_tpu.encoder import default_sps_pps
+    from dryv_tpu.encoder.p_frame import SequenceEncoder
+    from dryv_tpu.encoder.slices import encode_sequence_annexb
+
+    from test_device_ipb import _sources
+
+    frame_at = _sources(31, 6, 4)
+    sps, pps = default_sps_pps(6, 4, qp=28, poc_type=0, max_refs=2)
+    se = SequenceEncoder(sps, pps, 28, deblock=True)
+    frames = [
+        (se.encode_idr(*frame_at(0), poc=0), 7, True, 0, 0, 3),
+        (se.encode_p(*frame_at(4), poc=8), 5, False, 1, 8, 3),
+        (se.encode_b(*frame_at(2), poc=4), 6, False, 2, 4, 0),
+    ]
+    return encode_sequence_annexb(sps, pps, frames, deblock_disable=0)
+
+
 def test_import_leaves_no_jax():
     _run("import sys\n"
          + "".join(f"import {m}\n" for m in MODULES)
@@ -119,6 +172,9 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         decode_annexb_gop_pipelined(b"", device="cuda")
+    from dryv_tpu_torch.device_ipb_packed import decode_annexb_device_packed
+    with pytest.raises(RuntimeError, match="cuda"):
+        decode_annexb_device_packed(b"", device="cuda")
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -158,3 +158,61 @@ def test_dryrun_multichip(n, split):
     """Every frame of every sharded decode equals the native C++ decode."""
     r = tpar.dryrun_multichip(n, ["cpu"] * n)
     assert (r["gop"], r["band"]) == split and r["frames"] == 2
+
+
+def _p_picture(mb_w, mb_h, seed):
+    """A single-reference P picture as tests/test_parallel.py makes it:
+    quarter-pel vectors reaching up to +-12 integer rows (across 2-MB-row
+    bands) and past the picture's edges horizontally, some blocks with
+    no reference (they predict 0)."""
+    H, W = mb_h * 16, mb_w * 16
+    n = mb_w * mb_h
+    n4 = n * 16
+    rng = np.random.RandomState(seed)
+    ref = (rng.randint(0, 256, (H, W)).astype(np.uint8),
+           rng.randint(0, 256, (H // 2, W // 2)).astype(np.uint8),
+           rng.randint(0, 256, (H // 2, W // 2)).astype(np.uint8))
+    mv = np.stack([rng.randint(-220, 221, n4),
+                   rng.randint(-48, 49, n4)], axis=1).astype(np.int32)
+    rs = np.where(rng.rand(n4) < 0.1, -1, 0).astype(np.int32)
+    y_resid = rng.randint(-30, 31, (n, 16, 16)).astype(np.int32)
+    c_resid = rng.randint(-30, 31, (n, 2, 8, 8)).astype(np.int32)
+    return (*ref, mv, rs, y_resid, c_resid)
+
+
+def _unbanded_p(ref_y, ref_cb, ref_cr, mv, rs, y_resid, c_resid, mb_w,
+                mb_h):
+    """The same picture through B4's plain version on the whole plane."""
+    from dryv_tpu_torch.kernels.inter import mc_frame
+
+    t = [torch.from_numpy(p)[None] for p in (ref_y, ref_cb, ref_cr)]
+    mv16 = torch.from_numpy(mv.astype(np.int16))
+    slot = torch.from_numpy(np.where(rs >= 0, 0, -1).astype(np.int8))
+    py, pc = mc_frame(*t, slot, None, mv16, None, {"mode": 0}, mb_w, mb_h)
+    ty = np.clip(py.numpy().astype(np.int32) + y_resid, 0, 255)
+    tc = np.clip(pc.numpy().astype(np.int32) + c_resid, 0, 255)
+    H, W = 16 * mb_h, 16 * mb_w
+    return (ty.reshape(mb_h, mb_w, 16, 16).transpose(0, 2, 1, 3)
+            .reshape(H, W).astype(np.uint8),
+            *(tc[:, p].reshape(mb_h, mb_w, 8, 8).transpose(0, 2, 1, 3)
+              .reshape(H // 2, W // 2).astype(np.uint8) for p in (0, 1)))
+
+
+@pytest.mark.parametrize("n_bands", [2, 4])
+def test_banded_p_recon(n_bands):
+    """make_banded_p_recon_fn on meshes that repeat the CPU equals the JAX
+    function (8 virtual CPU devices) and the unbanded B4 path; the 4-band
+    case chains its 64-row aprons over two bands of 32 rows."""
+    from dryv_tpu.parallel import make_mesh
+    from dryv_tpu.parallel.bands import make_banded_p_recon_fn
+
+    mb_w, mb_h = 6, 8
+    pic = _p_picture(mb_w, mb_h, 3)
+    got = tpar.make_banded_p_recon_fn(
+        tpar.make_mesh({"band": n_bands}, CPU8), mb_w, mb_h, apron=64)(*pic)
+    ref = make_banded_p_recon_fn(make_mesh({"band": n_bands}), mb_w, mb_h,
+                                 apron=64)(*pic)
+    _assert_planes(got, ref, _unbanded_p(*pic, mb_w, mb_h))
+    with pytest.raises(AssertionError, match="exceeds apron"):
+        tpar.make_banded_p_recon_fn(tpar.make_mesh({"band": 2}, CPU8), mb_w,
+                                    mb_h, apron=16)(*pic)
