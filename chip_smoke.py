@@ -38,12 +38,26 @@ or a stored golden:
 - banded P recon, ``parallel.make_banded_p_recon_fn``, against motion
   compensation on the whole plane, on meshes of one card and of several.
 
-It times the kernels, the end-to-end batched decode, the device span of
-a batch of 16 deblocked pictures, the per-picture decode, the banded
-pipeline beside the unbanded wavefront, and the 1080p I/P/B decode
-beside the native C++ decode with its device span per picture; a
-torch.profiler trace counts the device kernels of one B2, B3 and B4
-call.  With --compare DIR (a
+Each decode path runs both ways: eager (``graph=False``, every op
+enqueued from the host) and graphed (the default: one captured CUDA
+graph replayed per batch or picture, ``dryv_tpu_torch.graphs``), the two
+bit-exact to each other and to the reference; one set of I/P/B steps is
+captured with torch.cuda's sync debug mode set to "error" inside the
+captured function.  A replay launches its kernels without calling their
+wrappers, so the run ends with one torch.profiler device trace (the
+census): one B1, B2, B3 and B4 call each, then every graphed path's
+streams again, each kernel counted by name; a graphed path's count must
+equal its eager decode's wrapper counts, and the per-kernel JSON takes
+its launches from there.  It times the kernels, the
+end-to-end batched decode eager and graphed in turns, the device span of
+a batch of 16 deblocked pictures, the per-picture decode eager and
+graphed, the banded pipeline beside the unbanded wavefront, and the
+1080p I/P/B decode eager and graphed in turns with the native C++
+decode, with each path's device span per batch or picture (CUDA events
+around its device call), its host enqueue, its cudaLaunchKernel and
+cudaGraphLaunch calls (CPU-activity torch.profiler traces, after the
+census) and its captured steps (keys, capture ms, the MiB of their
+graph pool).  With --compare DIR (a
 directory holding an earlier tree's ``densify.cu`` and ``deblock.cu``
 with the ``common.cuh`` they include, not part of the repo; their C
 entries as they were before B3 took a scratch argument) it also builds
@@ -56,6 +70,7 @@ non-zero exit and no result line.  The last line is {"ok": true,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import json
@@ -71,7 +86,7 @@ import torch
 
 F = 16           # pictures per batch, as the benchmark runs
 MB_W, MB_H = 120, 68
-REPS = 5
+REPS = 3    # runs of each end-to-end timing, in turns
 SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's ~2 GHz SM clock
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 # 32-bit integer add, shift, compare, min/max and logic results per clock
@@ -362,25 +377,114 @@ def old_kernels(src_dir):
     return {"densify": densify, "deblock": deblock}
 
 
-def kernel_launches_in_profile(fn, names):
-    """For each of `names`, the device ms of each device kernel whose
-    name holds it, in launch order, in a torch.profiler trace of one
-    fn() call; None when the profiler records no device time.  (One
-    session per process: a second one records no device events.)"""
-    from torch.profiler import ProfilerActivity, profile
+def device_kernels_in_profile(segments, names):
+    """One torch.profiler session over `segments`, [(label, fn)], each
+    fn() run and synchronised in a record_function range of its own,
+    20 ms apart.  For each label and each of `names`, the device ms of
+    each device kernel whose name holds it and whose start falls in the
+    label's range (give or take 10 ms), in launch order; kernels a CUDA
+    graph replays are traced like the others.  None when the profiler
+    records no device time.  It must be the process's first session: a
+    second one records no device events."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for label, fn in segments:
+            with record_function(f"segment {label}"):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(0.02)
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    evs = prof.events()
+    kern = sorted((e for e in evs if e.device_type == cuda),
+                  key=lambda e: e.time_range.start)
+    if not kern:
+        return None
+    starts = {e.name[len("segment "):]: e.time_range.start for e in evs
+              if e.device_type == cpu and e.name.startswith("segment ")}
+    bounds = [starts[label] - 1e4 for label, _ in segments] + [float("inf")]
+    out = {}
+    for i, (label, _) in enumerate(segments):
+        seg = [e for e in kern
+               if bounds[i] <= e.time_range.start < bounds[i + 1]]
+        out[label] = {n: [round((e.time_range.end - e.time_range.start)
+                                / 1e3, 4) for e in seg if n in e.name]
+                      for n in names}
+    return out
+
+
+@contextlib.contextmanager
+def spans_around(owner, attr, tag=lambda *a: None):
+    """Patches ``owner.attr`` so that every call records CUDA events
+    around it and the host time it takes to return (its enqueue); yields
+    the list of (start event, end event, host ms, tag(*args)).  Nothing
+    synchronises inside."""
+    spans = []
+    orig = getattr(owner, attr)
+
+    def timed(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        host = (time.perf_counter() - t0) * 1e3
+        e1.record()
+        spans.append((e0, e1, host, tag(*a)))
+        return out
+
+    setattr(owner, attr, timed)
+    try:
+        yield spans
+    finally:
+        setattr(owner, attr, orig)
+
+
+def span_summary(spans):
+    """(device ms list, mean device ms, mean host ms) of spans_around's
+    spans, after the work they bracket has finished."""
+    torch.cuda.synchronize()
+    dev = [a.elapsed_time(b) for a, b, _, _ in spans]
+    return dev, statistics.mean(dev), statistics.mean(h for *_, h, _ in
+                                                      spans)
+
+
+def pool_mib(cache):
+    """MiB of card memory in the graph pools of a ``StepCache``'s steps
+    (the segments of ``torch.cuda.memory_snapshot`` in those pools)."""
+    ids = {tuple(p) for p in cache.pools.values()}
+    return sum(sg["total_size"] for sg in torch.cuda.memory_snapshot()
+               if tuple(sg.get("segment_pool_id", ())) in ids) / 2**20
+
+
+def host_calls_in_profile(fn):
+    """(cudaLaunchKernel, cudaGraphLaunch) calls in a CPU-activity
+    torch.profiler trace of fn() (the process's first profiler run took
+    the device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not evs:
-        return None
-    return {n: [round((e.time_range.end - e.time_range.start) / 1e3, 4)
-                for e in sorted(evs, key=lambda e: e.time_range.start)
-                if n in e.name] for n in names}
+    calls = {e.key: e.count for e in prof.key_averages()}
+    return calls.get("cudaLaunchKernel", 0), calls.get("cudaGraphLaunch", 0)
+
+
+def sync_calls(fn):
+    """Calls that synchronise with the card during fn() (torch.cuda sync
+    debug mode, warnings)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing" in str(x.message) for x in caught)
 
 
 def main():
@@ -398,7 +502,7 @@ def main():
     print(card)
 
     from dryv_tpu_torch import _build, device_ipb_packed, gop_pipeline, \
-        parallel
+        graphs, parallel, pipeline
     from dryv_tpu_torch.decoder import DecodedFrame
     from dryv_tpu_torch.device_ipb_packed import (
         PackedPictureDecoder, decode_annexb_device_packed)
@@ -423,11 +527,17 @@ def main():
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
+    t_run = time.perf_counter()
+    phase_s = {}     # seconds from the start at which each phase began
+
+    def phase(label):
+        phase_s[label] = round(time.perf_counter() - t_run, 1)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name}")
 
     # ---- phase 2: build the host library and every kernel from the
     # checkout's sources
+    phase("2 build")
     t0 = time.perf_counter()
     print(f"host library: {host_build.build(force=True).name}")
     print(f"build: C++ host library {time.perf_counter() - t0:.2f} s "
@@ -483,6 +593,7 @@ def main():
     # B1 at the wire's shapes (16 pictures x 8192 MB rows on the batched
     # path, 1 picture on the I/P/B path) at three value strides, each
     # with rows of 0, W, W + 1 and 408 values
+    phase("3 kernels")
     npad = 8192
     b1_cases = {}
     for nf, W in [(F, w) for w in (32, 96, 256)] + [(1, w)
@@ -746,28 +857,22 @@ def main():
            "dryv_tpu/kernels/inter.py:146", 0, ms,
            cuda_ms(lambda: mc_frame_wire_plain(*args), 3), *b4_bound(*args))
 
-    # one B1, B2, B3 or B4 call is one launch on the device; the trace's
-    # device time of each kernel, beside cuda_ms's
+    # one B1, B2, B3 or B4 call is one launch on the device: the first
+    # segment of the trace at the end of the run
     names = ("densify_kernel", "intra_rows_kernel", "deblock_rows_kernel",
              "inter_mc_kernel")
     b4_prof = [b4_cases[("local", 1, 1)][0], b4_cases[("local", 2, 2)][0]]
-    n_prof = kernel_launches_in_profile(
-        lambda: ([densify(*b1_cases[nf]) for nf in (F, 1)],
-                 [intra_recon(*inputs, tables, MB_W, rows, halo=halo)
-                  for inputs, rows, halo in b2_cases.values()],
-                 [deblock(prm, *[p.clone() for p in planes], MB_W, MB_H)
-                  for prm, planes in b3_cases.values()],
-                 [mc_frame(*a) for a in b4_prof]), names)
-    print(f"device ms of each device kernel in a torch.profiler "
-          f"trace of 2 B1 calls (W = 96 at F = {F}, 1), {len(b2_cases)} B2 "
-          f"calls ({', '.join(b2_cases)}), {len(b3_cases)} B3 calls "
-          f"({', '.join(b3_cases)}) and {len(b4_prof)} B4 calls (P, B): "
-          f"{'not measured' if n_prof is None else n_prof}  [{card}]")
-    if n_prof is not None and [len(n_prof[k]) for k in names] != [
-            2, len(b2_cases), len(b3_cases), len(b4_prof)]:
-        fail("a B1, B2, B3 or B4 call launched other than one kernel")
+
+    def per_call():
+        [densify(*b1_cases[nf]) for nf in (F, 1)]
+        [intra_recon(*inputs, tables, MB_W, rows, halo=halo)
+         for inputs, rows, halo in b2_cases.values()]
+        [deblock(prm, *[p.clone() for p in planes], MB_W, MB_H)
+         for prm, planes in b3_cases.values()]
+        [mc_frame(*a) for a in b4_prof]
 
     # ---- phases 4-6: the main path, bit-exact, counted ----------------
+    phase("4-6 main path")
     nthreads = os.cpu_count() or 1
     gop_stream = open("benchdata/bench1080p_gop16.264", "rb").read()
     checks = [("bench1080p_gop16.264", gop_stream, "native C++")]
@@ -817,141 +922,194 @@ def main():
         print(f"{label}: {len(got)}/{len(ref)} frames bit-exact vs "
               f"{against}")
 
-    def need(path, c, keys, report=None):
-        """Fail unless every kernel in keys launched on the path; the
-        kernel lines in `report` (line -> counter) take their launch
-        count from this path."""
+    def need(path, c, keys):
+        """Fail unless every kernel in keys launched on the path."""
         print(f"launches on the {path}: {c}")
         for k in keys:
             if c[k] <= 0:
                 fail(f"kernel {k} never launched on the {path}")
-        for line, k in (report or {}).items():
-            kernels[line]["launches"] = c[k]
 
+    # a path's kernel launches on the card, graphed, are counted from
+    # the device trace at the end of the run ("census"): each path's
+    # streams decoded once more through its captured steps, every device
+    # kernel counted by name; they must equal the eager decode's
+    # wrapper counts, and the kernels line takes them
+    census = []      # (path, fn, eager counts, {kernels line: counter})
+
+    def main_path(graph):
+        for (label, stream, against), ref in zip(checks, refs):
+            check_frames(f"{label}, {('eager', 'graphed')[graph]}",
+                         decode_annexb_gop_pipelined(
+                             stream, gop=F, n_threads=nthreads, device=dev,
+                             graph=graph), ref, against)
+
+    # graphed (the default), every step made here: the wrappers count the
+    # launches of each step's warm-up and the ones its capture records
     reset_counts()
-    for (label, stream, against), ref in zip(checks, refs):
-        check_frames(label, decode_annexb_gop_pipelined(
-            stream, gop=F, n_threads=nthreads, device=dev), ref, against)
+    main_path(True)
     c = counts()
-    need("main path", c, ("densify", "intra_wavefront", "deblock"),
-         report={k: k for k in ("densify", "intra_wavefront", "deblock")})
+    need("main path, graphed, first run (warm-ups and captures)", c,
+         ("densify", "intra_wavefront", "deblock"))
     if c["fallback_calls"] != 0:
         fail("the main path left the batched scope")
+    reset_counts()
+    main_path(False)
+    c = counts()
+    need("main path, eager", c, ("densify", "intra_wavefront", "deblock"))
+    census.append(("main path", lambda: main_path(True), c,
+                   {k: k for k in ("densify", "intra_wavefront",
+                                   "deblock")}))
 
-    # ---- phase 7: end-to-end timing --------------------------------------
+    # ---- phase 7: end-to-end timing, eager and graphed ----------------
+    # graph=False enqueues PackedGopDecoder op by op; graph=True (the
+    # default) replays one captured step per batch
+    phase("7 batched timing")
     B = 8
     big = gop_stream * B
-    warm = decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
-                                       device=dev, stacked_out=True)
-    torch.cuda.synchronize()
     ref_y = torch.from_numpy(np.stack([r[0] for r in refs[0]])).to(dev)
-    for y, _cb, _cr, nf in warm:
+
+    def batched(graph, timers=None, stream=big):
+        out = decode_annexb_gop_pipelined(stream, gop=F, n_threads=nthreads,
+                                          device=dev, stacked_out=True,
+                                          timers=timers, graph=graph)
+        torch.cuda.synchronize()
+        return out
+
+    runs = {}
+    for graph in (False, True):
+        reset_counts()
+        runs[graph] = (batched(graph), counts())
+    for a, b in zip(*(runs[g][0] for g in (False, True))):
+        if a[3] != b[3] or not all(torch.equal(x, y)
+                                   for x, y in zip(a[:3], b[:3])):
+            fail("batched: the graphed decode differs from the eager one")
+    for y, _cb, _cr, nf in runs[True][0]:
         if not torch.equal(y[:nf, :1080], ref_y[:nf]):
             fail("timed-stream batch differs from the native decode")
-    fps, ratios, stage_ms = [], [], {}
-    for _ in range(REPS):
+    print(f"batched bench1080p_gop16 x{B} ({len(runs[True][0])} batches of "
+          f"{F}): graphed bit-exact vs eager and native C++; launches eager "
+          f"{runs[False][1]}, graphed (wrapper calls of warm-ups and "
+          f"captures only) {runs[True][1]}")
+    fps = {False: [], True: []}
+    ratios = {False: [], True: []}
+    stage_ms = {}
+    for graph in (False, True) * REPS:
         tm = StageTimers()
         t0 = time.perf_counter()
-        decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
-                                    device=dev, stacked_out=True, timers=tm)
-        torch.cuda.synchronize()
+        batched(graph, tm)
         wall = time.perf_counter() - t0
-        fps.append(B * 16 / wall)
-        ratios.append(sum(tm.t.values()) / wall)
-        stage_ms = {k: round(v / (B * 16) * 1e3, 3) for k, v in tm.t.items()}
-    med = statistics.median(fps)
-    print(f"e2e bench1080p_gop16 x{B} (stacked device output, "
-          f"n_threads={nthreads}): median {med:.2f} fps, min {min(fps):.2f}"
-          f", max {max(fps):.2f} over {REPS} runs  [{card}]")
-    print(f"e2e stage ms/frame (last run): {json.dumps(stage_ms)}; "
-          f"stage sum / wall: median {statistics.median(ratios):.3f}  "
-          f"[{card}]")
+        fps[graph].append(B * 16 / wall)
+        ratios[graph].append(sum(tm.t.values()) / wall)
+        stage_ms[graph] = {k: round(v / (B * 16) * 1e3, 3)
+                           for k, v in tm.t.items()}
+    for graph in (False, True):
+        f = fps[graph]
+        print(f"e2e bench1080p_gop16 x{B} {('eager', 'graphed')[graph]} "
+              f"(stacked device output, n_threads={nthreads}), in turns: "
+              f"median {statistics.median(f):.2f} fps, min {min(f):.2f}, "
+              f"max {max(f):.2f} over {REPS} runs; stage ms/frame (last "
+              f"run): {json.dumps(stage_ms[graph])}; stage sum / wall: "
+              f"median {statistics.median(ratios[graph]):.3f}  [{card}]")
     tm = StageTimers()
     t0 = time.perf_counter()
     host = decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
                                        device=dev, timers=tm)
     wall = time.perf_counter() - t0
-    print(f"e2e host-frame output: {len(host) / wall:.2f} fps, stage sum "
-          f"/ wall {sum(tm.t.values()) / wall:.3f}  [{card}]")
+    print(f"e2e host-frame output (graphed): {len(host) / wall:.2f} fps, "
+          f"stage sum / wall {sum(tm.t.values()) / wall:.3f}  [{card}]")
 
-    def forward_spans(stream):
+    def batch_spans(stream, graph):
         """Decode `stream` through the batched pipeline (stacked device
-        output) with CUDA events recorded around each batch's
-        PackedGopDecoder.forward (nothing synchronises inside the run);
-        returns (output, device ms per batch, wall s)."""
-        spans = []
-        forward = PackedGopDecoder.forward
-
-        def timed_forward(self, *args):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = forward(self, *args)
-            e1.record()
-            spans.append((e0, e1))
-            return out
-
-        PackedGopDecoder.forward = timed_forward
-        try:
+        output) with CUDA events around each batch's device call
+        (PackedGopDecoder.forward eager, the step's replay graphed);
+        returns (output, device ms per batch, host ms per batch, wall
+        s)."""
+        owner, attr = ((graphs.Step, "__call__") if graph
+                       else (PackedGopDecoder, "forward"))
+        with spans_around(owner, attr) as spans:
             t0 = time.perf_counter()
-            out = decode_annexb_gop_pipelined(stream, gop=F,
-                                              n_threads=nthreads, device=dev,
-                                              stacked_out=True)
-            torch.cuda.synchronize()
+            out = batched(graph, stream=stream)
             wall = time.perf_counter() - t0
-        finally:
-            PackedGopDecoder.forward = forward
-        return out, [a.elapsed_time(b) for a, b in spans], wall
+        ms, _, host = span_summary(spans)
+        return out, ms, host, wall
 
-    _, spans, wall = forward_spans(big)
-    busy = sum(spans)
-    print(f"device span of the batch stage: {busy / len(spans):.3f} ms per "
-          f"batch of {F}, {busy / 1e3 / wall:.4f} of the {wall:.3f} s wall "
-          f"[{card}]")
+    for graph in (False, True):
+        _, spans, host, wall = batch_spans(big, graph)
+        busy = sum(spans)
+        print(f"device span of the batch stage {('eager', 'graphed')[graph]}"
+              f": {busy / len(spans):.3f} ms per batch of {F} (host "
+              f"{host:.3f} ms to enqueue it), {busy / 1e3 / wall:.4f} of "
+              f"the {wall:.3f} s wall  [{card}]")
+
+    def batched_host_calls():
+        n_calls = {g: host_calls_in_profile(lambda: batched(g))
+                   for g in (False, True)}
+        print(f"batched bench1080p_gop16 x{B} host side, per batch of {F} "
+              f"(CPU-activity torch.profiler trace): " + ", ".join(
+                  f"{('eager', 'graphed')[g]} {k / B:.1f} cudaLaunchKernel,"
+                  f" {gl / B:.1f} cudaGraphLaunch" for g, (k, gl)
+                  in n_calls.items()) + f"  [{card}]")
+
+    # CPU-activity traces run after the census, the run's one device trace
+    host_side = [batched_host_calls]
 
     # one batch of 16 deblocked pictures: bench1080p_dblk.264 x 16, so
     # that B3 runs at the batched path's shape on a real picture
     dblk = open("benchdata/bench1080p_dblk.264", "rb").read() * F
     gd = np.load("benchdata/bench1080p_dblk_golden.npz")
-    want = [torch.from_numpy(gd[k]).to(dev) for k in ("y", "cb", "cr")]
+    dblk_want = [torch.from_numpy(gd[k]).to(dev) for k in ("y", "cb", "cr")]
 
-    def dblk_batch(b3):
+    def dblk_batch(b3, graph):
         """Device ms of the deblocked batch with `b3` as the pipeline's
-        deblock; every frame checked against the golden."""
+        deblock (an eager decode reads it at each call; a step holds the
+        one it was captured with); every frame checked against the
+        golden."""
         gop_pipeline.deblock = b3
         try:
-            out, sp, _ = forward_spans(dblk)
+            out, sp, _, _ = batch_spans(dblk, graph)
         finally:
             gop_pipeline.deblock = deblock
         if len(out) != 1 or out[0][3] != F:
             fail("bench1080p_dblk x 16 did not decode as one batch of 16")
         y, cb, cr, _ = out[0]
-        for got, w in zip((y, cb, cr), want):
+        for got, w in zip((y, cb, cr), dblk_want):
             if not torch.equal(got[:, :w.shape[0], :w.shape[1]],
                                w.expand(F, *w.shape)):
                 fail("deblocked batch differs from "
                      "bench1080p_dblk_golden.npz")
         return sp[0]
 
-    reset_counts()
-    dspans = [dblk_batch(deblock) for _ in range(3)]
-    c = counts()
+    batched(True, stream=dblk)       # the step's capture, untimed
+    dspans = {}
+    for g in (False, True):
+        reset_counts()
+        dspans[g] = [dblk_batch(deblock, g) for _ in range(3)]
+        if not g:
+            c = counts()
     print(f"device span of one batch of {F} deblocked pictures "
           f"(bench1080p_dblk.264 x {F}, every frame bit-exact vs "
-          f"bench1080p_dblk_golden.npz), CUDA events, 3 runs: "
-          f"{', '.join(f'{v:.3f}' for v in dspans)} ms; launches {c}  "
-          f"[{card}]")
+          f"bench1080p_dblk_golden.npz, eager and graphed), CUDA events, 3 "
+          f"runs each: eager {', '.join(f'{v:.3f}' for v in dspans[False])}"
+          f" ms, graphed {', '.join(f'{v:.3f}' for v in dspans[True])} ms; "
+          f"launches eager {c}  [{card}]")
     if c["deblock"] != 3 or c["fallback_calls"]:
         fail("the deblocked batch did not run B3 once per batch")
+    census.append(("deblocked batch x3",
+                   lambda: [dblk_batch(deblock, True) for _ in range(3)], c,
+                   {}))
     if old:
-        t = [statistics.mean(dblk_batch(b3) for _ in range(3))
+        t = [statistics.mean(dblk_batch(b3, False) for _ in range(3))
              for b3 in (old["deblock"], deblock, deblock, old["deblock"])]
-        print(f"device span of the deblocked batch, mean of 3 runs, in "
-              f"turns: earlier B3 "
+        print(f"device span of the deblocked batch (eager), mean of 3 runs, "
+              f"in turns: earlier B3 "
               f"{t[0]:.3f} / {t[3]:.3f} ms, this B3 {t[1]:.3f} / "
               f"{t[2]:.3f} ms; every frame bit-exact  [{card}]")
+    print(f"captured steps of the batched path: "
+          f"{json.dumps(gop_pipeline.STEPS.stats())}, their pool "
+          f"{pool_mib(gop_pipeline.STEPS):.1f} MiB  [{card}]")
 
     # ---- phase 8: the per-picture path (CAVLC, scaling matrices) -------
+    phase("8 per-picture")
     pp_checks = []
     for stem in ("bench1080p", "bench1080p_dblk"):
         g = np.load(f"benchdata/{stem}_golden.npz")
@@ -966,40 +1124,87 @@ def main():
                           f" PCM/I4/I8/I16, deblocked)", stream,
                           [(r.y, r.cb, r.cr) for r in decode_annexb_native(
                               stream, n_threads=nthreads)], "native C++"))
-    reset_counts()
-    for label, stream, ref, against in pp_checks:
-        check_frames(label, decode_annexb_fast(stream, n_threads=nthreads,
-                                               device=dev), ref, against)
-    c = counts()
-    need("per-picture path", c, ("intra_wavefront", "deblock"),
-         report={"deblock_f1": "deblock"})
-    if c["host_calls"] != 0:
-        fail("the per-picture path sent a stream to the host decoder")
+    def per_picture(graph):
+        for label, stream, ref, against in pp_checks:
+            check_frames(f"{label}, {('eager', 'graphed')[graph]}",
+                         decode_annexb_fast(stream, n_threads=nthreads,
+                                            device=dev, graph=graph),
+                         ref, against)
 
     reset_counts()
-    check_frames("batched pipeline on the CAVLC pictures",
+    per_picture(True)
+    c = counts()
+    need("per-picture path, graphed, first run (warm-ups and captures)", c,
+         ("intra_wavefront", "deblock"))
+    if c["host_calls"] != 0:
+        fail("the per-picture path sent a stream to the host decoder")
+    reset_counts()
+    per_picture(False)
+    c = counts()
+    need("per-picture path, eager", c, ("intra_wavefront", "deblock"))
+    census.append(("per-picture path", lambda: per_picture(True), c,
+                   {"deblock_f1": "deblock"}))
+
+    reset_counts()
+    check_frames("batched pipeline on the CAVLC pictures, eager",
                  decode_annexb_gop_pipelined(cavlc, gop=F,
-                                             n_threads=nthreads, device=dev),
+                                             n_threads=nthreads, device=dev,
+                                             graph=False),
                  pp_checks[2][2], "native C++")
     c = counts()
-    print(f"launches, CAVLC through the batched pipeline: {c}")
+    print(f"launches, CAVLC through the batched pipeline (eager): {c}")
     if (c["fallback_calls"] != 1 or c["host_calls"] != 0
             or c["intra_wavefront"] <= 0 or c["deblock"] <= 0):
         fail("the batched pipeline did not hand the CAVLC stream to the "
              "per-picture device path")
 
-    fps = []
-    for _ in range(3):
+    fps = {False: [], True: []}
+    for graph in (False, True) * REPS:
         t0 = time.perf_counter()
-        got = decode_annexb_fast(gop_stream, n_threads=nthreads, device=dev)
-        fps.append(len(got) / (time.perf_counter() - t0))
-    check_frames("per-picture bench1080p_gop16.264 (timed)", got, refs[0],
-                 "native C++")
-    print(f"per-picture decode_annexb_fast bench1080p_gop16 (host frames): "
-          f"median {statistics.median(fps):.2f} fps, min {min(fps):.2f}, "
-          f"max {max(fps):.2f} over 3 runs  [{card}]")
+        got = decode_annexb_fast(gop_stream, n_threads=nthreads, device=dev,
+                                 graph=graph)
+        fps[graph].append(len(got) / (time.perf_counter() - t0))
+        check_frames(f"per-picture bench1080p_gop16.264 (timed, "
+                     f"{('eager', 'graphed')[graph]})", got, refs[0],
+                     "native C++")
+    print("per-picture decode_annexb_fast bench1080p_gop16 (host frames), "
+          "in turns: " + "; ".join(
+              f"{('eager', 'graphed')[g]} median {statistics.median(f):.2f} "
+              f"fps, min {min(f):.2f}, max {max(f):.2f} over {REPS} runs"
+              for g, f in fps.items()) + f"  [{card}]")
+    for graph in (False, True):
+        # the device call of a picture: stage A + B2 eager (the stream
+        # has no in-loop filter), the step's replay graphed
+        owner, attr = ((graphs.Step, "__call__") if graph
+                       else (pipeline, "recon_syntax"))
+        with spans_around(owner, attr) as spans:
+            t0 = time.perf_counter()
+            decode_annexb_fast(gop_stream, n_threads=nthreads, device=dev,
+                               graph=graph)
+            wall = time.perf_counter() - t0
+        ms, mean_ms, host = span_summary(spans)
+        print(f"per-picture bench1080p_gop16 {('eager', 'graphed')[graph]}:"
+              f" device span {mean_ms:.3f} ms per picture (host "
+              f"{host:.3f} ms to enqueue it), {sum(ms) / 1e3 / wall:.4f} of "
+              f"the {wall:.3f} s wall  [{card}]")
+
+    def per_picture_host_calls():
+        for graph in (False, True):
+            k, gl = host_calls_in_profile(lambda: decode_annexb_fast(
+                gop_stream, n_threads=nthreads, device=dev, graph=graph))
+            print(f"per-picture bench1080p_gop16 "
+                  f"{('eager', 'graphed')[graph]}: per picture "
+                  f"{k / len(refs[0]):.1f} cudaLaunchKernel, "
+                  f"{gl / len(refs[0]):.1f} cudaGraphLaunch (CPU-activity "
+                  f"torch.profiler trace)  [{card}]")
+
+    host_side.append(per_picture_host_calls)
+    print(f"captured steps of the per-picture path: "
+          f"{json.dumps(pipeline.STEPS.stats())}, their pool "
+          f"{pool_mib(pipeline.STEPS):.1f} MiB  [{card}]")
 
     # ---- phase 9: the sharded paths on one card -------------------------
+    phase("9 sharded")
     frames, gsps = frames_from_stream(gop_stream, n_threads=nthreads)
 
     def check_planes(label, planes, ref):
@@ -1026,9 +1231,11 @@ def main():
                  [run3(frames[0])], refs[0][:1])
     parallel.dryrun_multichip(4, ["cuda:0"] * 4, stream=gop_stream,
                               n_threads=nthreads)
-    need("sharded paths", counts(),
-         ("intra_wavefront", "intra_wavefront_banded"),
-         report={"intra_wavefront_banded": "intra_wavefront_banded"})
+    # the band steps run eager: their wrappers count every launch
+    c = counts()
+    need("sharded paths", c, ("intra_wavefront", "intra_wavefront_banded"))
+    kernels["intra_wavefront_banded"]["launches"] = \
+        c["intra_wavefront_banded"]
 
     # device span of stage A + wavefront over the 16 pictures, syntax
     # already on the card: banded pipeline (4 bands on one card) beside
@@ -1071,54 +1278,87 @@ def main():
           f"{times[1][0]:.3f} ({times[1][1]:.3f}) / {times[2][0]:.3f} "
           f"({times[2][1]:.3f}) ms  [{card}]")
 
-    # ---- phase 10: the packed I/P/B path ----------------------------------
+    # ---- phase 10: the packed I/P/B path, eager and graphed ------------
+    phase("10 I/P/B")
     gi = np.load("benchdata/bench_ipb_golden.npz")
     ipb_small = open("benchdata/bench_ipb.264", "rb").read()
+    small_ref = [(gi[f"f{i}_y"], gi[f"f{i}_b"], gi[f"f{i}_r"])
+                 for i in range(9)]
     ipb = open("benchdata/bench1080p_ipb.264", "rb").read()
     ipb_ref = [(r.y, r.cb, r.cr) for r in
                decode_annexb_native(ipb, n_threads=nthreads)]
-    seen = {}         # (nlists, wp_mode) -> pictures
     captured = {}     # nlists -> one B4 call's arguments on bench1080p
-    forward = PackedPictureDecoder.forward
     mc_of_path = device_ipb_packed.mc_frame
-
-    def seen_forward(self, blob, W, ecap, ovcap, refs, nlists, wp_mode,
-                     *rest):
-        key = ("IPB"[nlists], wp_mode)
-        seen[key] = seen.get(key, 0) + 1
-        return forward(self, blob, W, ecap, ovcap, refs, nlists, wp_mode,
-                       *rest)
 
     def capture_mc(*args):
         if args[3].shape[0] == 16 * MB_W * MB_H:
             captured.setdefault(1 if args[4] is None else 2, args)
         return mc_of_path(*args)
 
-    PackedPictureDecoder.forward = seen_forward
+    def picture_call(graph):
+        """The per-picture device call of the I/P/B path and a tag of its
+        (picture type, weighted-prediction mode): forward eager, the
+        step's replay graphed (its key holds wp_mode and nlists)."""
+        if graph:
+            return graphs.Step, "__call__", lambda st: ("IPB"[st.key[10]],
+                                                        st.key[4])
+        return PackedPictureDecoder, "forward", \
+            lambda self, blob, W, ecap, ovcap, refs, nlists, wp_mode, *r: (
+                "IPB"[nlists], wp_mode)
+
+    def ipb_checks(graph):
+        """Both streams, bit-exact; (launch counts, pictures by type and
+        weighted-prediction mode)."""
+        reset_counts()
+        with spans_around(*picture_call(graph)) as spans:
+            check_frames(f"packed I/P/B bench_ipb.264 (640x368, 9 pictures"
+                         f", {('eager', 'graphed')[graph]})",
+                         decode_annexb_device_packed(
+                             ipb_small, n_threads=nthreads, device=dev,
+                             graph=graph), small_ref, "bench_ipb_golden.npz")
+            check_frames(f"packed I/P/B bench1080p_ipb.264 (1080p, 10 "
+                         f"pictures, {('eager', 'graphed')[graph]})",
+                         decode_annexb_device_packed(
+                             ipb, n_threads=nthreads, device=dev,
+                             graph=graph), ipb_ref, "native C++")
+        c = counts()
+        seen = {}
+        for *_, t in spans:
+            seen[t] = seen.get(t, 0) + 1
+        return c, seen
+
+    # B4's arguments on real pictures are taken on an eager decode: a
+    # step's are views into its graph's static buffers
     device_ipb_packed.mc_frame = capture_mc
-    reset_counts()
     try:
-        check_frames("packed I/P/B bench_ipb.264 (640x368, 9 pictures)",
-                     decode_annexb_device_packed(ipb_small,
-                                                 n_threads=nthreads,
-                                                 device=dev),
-                     [(gi[f"f{i}_y"], gi[f"f{i}_b"], gi[f"f{i}_r"])
-                      for i in range(9)], "bench_ipb_golden.npz")
-        check_frames("packed I/P/B bench1080p_ipb.264 (1080p, 10 pictures)",
-                     decode_annexb_device_packed(ipb, n_threads=nthreads,
-                                                 device=dev),
-                     ipb_ref, "native C++")
+        c_eager, seen = ipb_checks(False)
     finally:
-        PackedPictureDecoder.forward = forward
         device_ipb_packed.mc_frame = mc_of_path
-    c = counts()
+    c, seen_graphed = ipb_checks(True)
     print(f"pictures by type and weighted-prediction mode on the packed "
           f"I/P/B path: {seen}")
-    need("packed I/P/B path", c, ("densify", "intra_wavefront", "deblock",
-                                  "inter_mc"),
-         report={"inter_mc": "inter_mc", "densify_f1": "densify"})
-    if c["ipb_host_calls"]:
+    if seen != seen_graphed:
+        fail("packed I/P/B: graphed and eager pictures differ")
+    i_keys = ("densify", "intra_wavefront", "deblock", "inter_mc")
+    need("packed I/P/B path, graphed, first run (warm-ups and captures)", c,
+         i_keys)
+    need("packed I/P/B path, eager", c_eager, i_keys)
+    if c["ipb_host_calls"] or c_eager["ipb_host_calls"]:
         fail("the packed I/P/B path sent a stream to the host decoder")
+
+    def ipb_graphed():
+        check_frames("packed I/P/B bench_ipb.264, graphed",
+                     decode_annexb_device_packed(ipb_small,
+                                                 n_threads=nthreads,
+                                                 device=dev), small_ref,
+                     "bench_ipb_golden.npz")
+        check_frames("packed I/P/B bench1080p_ipb.264, graphed",
+                     decode_annexb_device_packed(ipb, n_threads=nthreads,
+                                                 device=dev), ipb_ref,
+                     "native C++")
+
+    census.append(("packed I/P/B path", ipb_graphed, c_eager,
+                   {"inter_mc": "inter_mc", "densify_f1": "densify"}))
     for nl, a in sorted(captured.items()):
         print(f"kernel inter_mc on a {'PB'[nl - 1]} picture of "
               f"bench1080p_ipb.264 (WP {a[7]['mode']}, stack of "
@@ -1128,18 +1368,57 @@ def main():
               f"bound {b4_bound(*a)[0]:.4f} ms ({b4_bound(*a)[1]})  "
               f"[{card}]")
 
+    # every step of bench_ipb.264 captured anew with a host
+    # synchronisation inside the captured function an error
+    kept, capture = device_ipb_packed.STEPS, graphs.Step._capture
+
+    def strict_capture(self):
+        fn = self.fn
+
+        def checked(*a):
+            if not torch.cuda.is_current_stream_capturing():
+                return fn(*a)        # the warm-up run
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        self.fn = checked
+        try:
+            capture(self)
+        finally:
+            self.fn = fn
+
+    device_ipb_packed.STEPS = graphs.StepCache()
+    graphs.Step._capture = strict_capture
+    try:
+        check_frames("packed I/P/B bench_ipb.264, every step captured anew "
+                     "under torch.cuda sync debug mode \"error\"",
+                     decode_annexb_device_packed(ipb_small,
+                                                 n_threads=nthreads,
+                                                 device=dev), small_ref,
+                     "bench_ipb_golden.npz")
+        print(f"captured steps under sync debug mode \"error\": "
+              f"{json.dumps(device_ipb_packed.STEPS.stats())}  [{card}]")
+    finally:
+        device_ipb_packed.STEPS, graphs.Step._capture = kept, capture
+
     # end to end, frames to host, in turns with the native C++ decode
-    fps = {"native C++": [], "packed I/P/B": []}
-    for label in ("native C++", "packed I/P/B") * 3:
+    fps = {"native C++": [], "eager I/P/B": [], "graphed I/P/B": []}
+    tms = {}
+    for label in tuple(fps) * REPS:
         tm = StageTimers()
         t0 = time.perf_counter()
         if label == "native C++":
             got = decode_annexb_native(ipb, n_threads=nthreads)
         else:
-            got = decode_annexb_device_packed(ipb, n_threads=nthreads,
-                                              device=dev, timers=tm)
+            got = decode_annexb_device_packed(
+                ipb, n_threads=nthreads, device=dev, timers=tm,
+                graph=label.startswith("graphed"))
         wall = time.perf_counter() - t0
         fps[label].append(len(got) / wall)
+        tms[label] = (tm, wall)
         check_frames(f"{label} bench1080p_ipb.264 (timed)", got, ipb_ref,
                      "native C++")
     print("e2e bench1080p_ipb.264 (10 pictures, frames to host, "
@@ -1147,65 +1426,58 @@ def main():
               f"{k} median {statistics.median(v):.2f} fps (runs "
               f"{', '.join(f'{x:.2f}' for x in v)})" for k, v in fps.items())
           + f"  [{card}]")
-    per_pic = {k: round(v / len(got) * 1e3, 3) for k, v in tm.t.items()}
-    print(f"e2e packed I/P/B stage ms/picture (last run): "
-          f"{json.dumps(per_pic)}; stage sum / wall "
-          f"{sum(tm.t.values()) / wall:.3f}  [{card}]")
+    for label in ("eager I/P/B", "graphed I/P/B"):
+        tm, wall = tms[label]
+        per_pic = {k: round(v / len(ipb_ref) * 1e3, 3)
+                   for k, v in tm.t.items()}
+        print(f"e2e {label} stage ms/picture (last run): "
+              f"{json.dumps(per_pic)}; stage sum / wall "
+              f"{sum(tm.t.values()) / wall:.3f}  [{card}]")
 
-    # the device span of each picture: CUDA events around
-    # PackedPictureDecoder.forward, nothing synchronising inside the run
-    spans = []
+    for graph in (False, True):
+        # the device span of each picture: CUDA events around its device
+        # call, nothing synchronising inside the run; then the host side:
+        # launches per picture in a CPU-activity torch.profiler trace, and
+        # the calls that synchronise with the card in a decode
+        def run():
+            decode_annexb_device_packed(ipb, n_threads=nthreads, device=dev,
+                                        device_out=True, graph=graph)
 
-    def timed_forward(self, *a):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = forward(self, *a)
-        e1.record()
-        spans.append((e0, e1, "IPB"[a[5]]))
-        return out
+        with spans_around(*picture_call(graph)) as spans:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ms, mean_ms, host = span_summary(spans)
+        n_sync = sync_calls(run)
+        print(f"packed I/P/B bench1080p_ipb.264 {('eager', 'graphed')[graph]}"
+              f" (device output): device span per picture, CUDA events: "
+              + ", ".join(f"{t[0]} {v:.3f}" for v, (*_, t) in zip(ms, spans))
+              + f" ms; mean {mean_ms:.3f} ms (host {host:.3f} ms to enqueue"
+              f" it), {sum(ms) / 1e3 / wall:.4f} of the {wall:.3f} s wall; "
+              f"{n_sync} synchronizing calls in a decode (torch.cuda sync "
+              f"debug mode)  [{card}]")
 
-    PackedPictureDecoder.forward = timed_forward
-    try:
-        t0 = time.perf_counter()
-        decode_annexb_device_packed(ipb, n_threads=nthreads, device=dev,
-                                    device_out=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        PackedPictureDecoder.forward = forward
-    ms = [(a.elapsed_time(b), t) for a, b, t in spans]
-    print(f"device span per picture of bench1080p_ipb.264 (device output), "
-          f"CUDA events: " + ", ".join(f"{t} {v:.3f}" for v, t in ms)
-          + f" ms; mean {statistics.mean(v for v, _ in ms):.3f} ms, "
-          f"{sum(v for v, _ in ms) / 1e3 / wall:.4f} of the {wall:.3f} s "
-          f"wall  [{card}]")
+    def ipb_host_calls():
+        for graph in (False, True):
+            k, gl = host_calls_in_profile(lambda: decode_annexb_device_packed(
+                ipb, n_threads=nthreads, device=dev, device_out=True,
+                graph=graph))
+            print(f"packed I/P/B bench1080p_ipb.264 "
+                  f"{('eager', 'graphed')[graph]} (device output): per "
+                  f"picture {k / len(ipb_ref):.1f} cudaLaunchKernel, "
+                  f"{gl / len(ipb_ref):.1f} cudaGraphLaunch (CPU-activity "
+                  f"torch.profiler trace)  [{card}]")
 
-    # the host side of the device stage: kernel launches per picture in a
-    # CPU-activity torch.profiler trace (the process's first profiler run
-    # took the device events), and the calls that synchronise with the
-    # card
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        decode_annexb_device_packed(ipb, n_threads=nthreads, device=dev,
-                                    device_out=True)
-        torch.cuda.synchronize()
-    n_launch = sum(e.count for e in prof.key_averages()
-                   if e.key == "cudaLaunchKernel")
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        decode_annexb_device_packed(ipb, n_threads=nthreads, device=dev,
-                                    device_out=True)
-    torch.cuda.set_sync_debug_mode(0)
-    n_sync = sum("synchronizing" in str(x.message) for x in caught)
-    print(f"packed I/P/B bench1080p_ipb.264 host side: {n_launch / 10:.1f} "
-          f"kernel launches per picture (cudaLaunchKernel in a CPU-activity "
-          f"torch.profiler trace), {n_sync} synchronizing calls in a decode "
-          f"(torch.cuda sync debug mode)  [{card}]")
+    host_side.append(ipb_host_calls)
+    print(f"captured steps of the packed I/P/B path: "
+          f"{json.dumps(device_ipb_packed.STEPS.stats())}, their pool "
+          f"{pool_mib(device_ipb_packed.STEPS):.1f} MiB; card memory "
+          f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB  "
+          f"[{card}]")
 
     # ---- phase 11: banded P recon, equal to B4 on the whole plane -------
+    phase("11 banded P recon")
     prng = np.random.default_rng(5)
     n4 = 16 * n
     pmv = np.stack([prng.integers(-4 * 80, 4 * 80 + 1, n4),
@@ -1240,9 +1512,54 @@ def main():
               f"band, apron 64): equal to B4 on the whole plane")
     need("banded P recon", counts(), ("inter_mc",))
 
+    # ---- phase 12: the census, the run's one device trace --------------
+    # the per-call kernels of phase 3, then each graphed path's streams
+    # once more through steps made before (one untraced run first): the
+    # device kernels of each path must equal its eager wrapper counts
+    phase("12 census")
+    caches = (gop_pipeline.STEPS, pipeline.STEPS, device_ipb_packed.STEPS)
+    for _, fn, _, _ in census:
+        fn()
+    made = [x.made for x in caches]
+    trace = device_kernels_in_profile(
+        [("per call", per_call)] + [(p, fn) for p, fn, _, _ in census],
+        names)
+    if trace is None:
+        fail("the profiler recorded no device time: the graphed paths' "
+             "launches are not measured")
+    if [x.made for x in caches] != made:
+        fail("a step was made inside the census: its counts would hold "
+             "its warm-up")
+    n_prof = trace["per call"]
+    print(f"device ms of each device kernel in a torch.profiler "
+          f"trace of 2 B1 calls (W = 96 at F = {F}, 1), {len(b2_cases)} B2 "
+          f"calls ({', '.join(b2_cases)}), {len(b3_cases)} B3 calls "
+          f"({', '.join(b3_cases)}) and {len(b4_prof)} B4 calls (P, B): "
+          f"{n_prof}  [{card}]")
+    if [len(n_prof[k]) for k in names] != [
+            2, len(b2_cases), len(b3_cases), len(b4_prof)]:
+        fail("a B1, B2, B3 or B4 call launched other than one kernel")
+    kname = dict(zip(("densify", "intra_wavefront", "deblock", "inter_mc"),
+                     names))
+    for path, _, eager, report in census:
+        got = {k: len(trace[path][n]) for k, n in kname.items()}
+        expect = {k: eager[k] for k in kname}
+        print(f"device kernels of the {path}, graphed, in the census trace: "
+              f"{got}; eager wrapper counts {expect}  [{card}]")
+        if got != expect:
+            fail(f"{path}: the graphed decode launched other kernels than "
+                 f"the eager one")
+        for line, k in report.items():
+            kernels[line]["launches"] = got[k]
+    for f in host_side:
+        f()
+
     for k, v in kernels.items():
         if not v["launches"]:
             fail(f"kernel {k} launched on no driven path")
+    phase("end")
+    print(f"seconds from the start at which each phase began: "
+          f"{json.dumps(phase_s)}  [{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,59 +1,80 @@
-"""CLI of the port.
+"""CLI of the port, a drop-in for ``python -m dryv_tpu``: the same
+arguments, and by default the same output file, the first decoded frame
+as planar YUV (``TorchVideo.write_yuv``).
 
-Usage: python -m dryv_tpu_torch <file.mp4> [-o OUT] [--frames N]
-       [--device cuda|cpu] [--backend torch|device-ipb|native|scalar]
-       [--stats]
+Usage: python -m dryv_tpu_torch <file.mp4> [-d] [-o OUT] [--frames N]
+       [--backend torch|jax|device-ipb|native|scalar] [-s SEEK]
+       [--stats] [--device cuda|cpu] [--all-frames]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import time
-
-import numpy as np
 
 from .video import BACKENDS, TorchVideo
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="dryv-tpu-torch",
         description="AVC decode on PyTorch + CUDA (H100)")
     ap.add_argument("filepath")
+    ap.add_argument("-d", "--debug", action="store_true",
+                    help="debug logging, also into debug.log")
     ap.add_argument("-o", "--output", default="temp/yuv_frame",
-                    help="planar YUV output, frames one after another")
+                    help="planar YUV output (the first frame, or every "
+                         "frame with --all-frames)")
     ap.add_argument("--frames", type=int, default=1,
-                    help="frames to write (0 = all)")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; fails without a GPU) or cpu")
-    ap.add_argument("--backend", choices=BACKENDS, default="torch",
+                    help="frames to decode (0 = all)")
+    ap.add_argument("--backend", choices=BACKENDS + ("jax",),
+                    default="torch",
                     help="torch (intra device paths; inter streams go to "
-                         "the C++ host decoder), device-ipb (the packed "
+                         "the C++ host decoder; 'jax', the JAX CLI's name "
+                         "for it, is the same), device-ipb (the packed "
                          "I/P/B device path), native (C++ host), scalar "
                          "(Python reference)")
+    ap.add_argument("-s", "--seek", default=None,
+                    help="seek position: Ns | Nms | N%% | Nts (parsed, "
+                         "not applied, as in the JAX CLI)")
     ap.add_argument("--stats", action="store_true",
                     help="print per-stage timing as JSON after decoding")
-    args = ap.parse_args(argv)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a GPU) or cpu")
+    ap.add_argument("--all-frames", action="store_true",
+                    help="write every decoded frame, one after another")
+    return ap
 
-    from .utils.obs import StageTimers
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+
+    logging.basicConfig(
+        level=logging.DEBUG if args.debug else logging.INFO,
+        format="%(levelname).1s %(name)s %(message)s")
+    if args.debug:
+        from .utils.obs import enable_debug_log
+        enable_debug_log("debug.log")
+
+    from .utils.obs import StageTimers, logger
 
     t0 = time.time()
     v = TorchVideo.open(args.filepath)
-    for k, val in v.info().items():
+    info = v.info()
+    logger("cli").debug("%s: %s", args.filepath, info)
+    for k, val in info.items():
         print(f"{k}: {val}")
     tm = StageTimers() if args.stats else None
+    backend = "torch" if args.backend == "jax" else args.backend
     frames = v.decode_frames(max_frames=args.frames, device=args.device,
-                             timers=tm, backend=args.backend)
+                             timers=tm, backend=backend)
     if frames:
         os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
-        with open(args.output, "wb") as f:
-            for fr in frames:
-                for plane in (fr.y, fr.cb, fr.cr):
-                    if plane is not None:
-                        # the scalar decoder's planes are wider ints
-                        f.write(plane.astype(np.uint8).tobytes())
-        print(f"wrote {len(frames)} frame(s) to {args.output} "
+        out = frames if args.all_frames else frames[:1]
+        v.write_yuv(args.output, *out)
+        print(f"wrote {len(out)} frame(s) to {args.output} "
               f"({frames[0].y.shape[1]}x{frames[0].y.shape[0]})")
     if tm is not None:
         print("stats:", json.dumps(tm.report()))

@@ -18,7 +18,10 @@ Counterpart of ``dryv_tpu/device_ipb_packed.py``.  Per picture:
    block), inter tiles riding B2's PCM channel (F = 1), and for streams
    that enable it the general edge parameters
    (``kernels.deblock.deblock_precompute``, the inter boundary-strength
-   rules over the shipped motion field) and B3.
+   rules over the shipped motion field) and B3.  It runs as one captured
+   CUDA graph per static key (``STEPS``, the counterpart of the JAX
+   path's ``_FN_CACHE``): a replay per picture in place of ~890
+   launches.
 
 Reconstructed planes stay on the device as reference pictures; output is
 drained in one batched copy.  ``_IPB_SPEC``, ``_shapes``, ``_layout`` and
@@ -27,6 +30,7 @@ held equal to them by ``tests/test_torch_helpers.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes as ct
 
 import numpy as np
@@ -35,6 +39,7 @@ import torch
 from .coeffs import KIND_I4, KIND_I8, KIND_PCM
 from .device import resolve_device
 from .gop_pipeline import dense_rows, split_blob, wire_syntax
+from .graphs import StepCache
 from .kernels.deblock import deblock, deblock_precompute, pack_params
 from .kernels.geometry import BLK, round_up
 from .kernels.inter import mc_frame
@@ -172,6 +177,22 @@ class PackedPictureDecoder(torch.nn.Module):
         return y[0], cb[0], cr[0]
 
 
+# one captured step per key (device, mb_w, mb_h, deblocked, wp_mode, c0,
+# c1, W, ecap, ovcap, nlists, R): the JAX path's _make_pic_fn key without
+# `interpret`, plus R, the reference stack depth; a stream uses a few,
+# and a cap growth adds one
+STEPS = StepCache(max_keys=32)
+
+
+def _picture_fn(model, W, ecap, ovcap, nlists, wp_mode, deblocked, c0, c1):
+    """``model.forward`` with a key's Python constants bound: fn(blob,
+    *refs), refs the (y, cb, cr) stacks of an inter picture."""
+    def fn(blob, *refs):
+        return model(blob, W, ecap, ovcap, refs or None, nlists, wp_mode,
+                     deblocked, c0, c1)
+    return fn
+
+
 class _Meta:
     """A stored reference picture's motion field, for later pictures'
     direct modes; motion-only recon reads no host planes, so they are
@@ -201,7 +222,8 @@ def _out_of_scope(sps, pps, h) -> bool:
 
 def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                                 n_threads: int = 0, device_out: bool = False,
-                                device="cuda", timers=None):
+                                device="cuda", timers=None,
+                                graph: bool = True):
     """Decode an Annex-B I/P/B stream with the packed-wire device path.
 
     Returns cropped DecodedFrames in display order (epoch, then POC); with
@@ -215,7 +237,14 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
     ``decode_annexb_device_packed.host_calls``.  `timers` (a
     ``utils.obs.StageTimers``) accumulates the host stages: parse,
     entropy, motion (derivation and WP tables), pack, ship, dispatch
-    (enqueueing ``PackedPictureDecoder``) and harvest."""
+    (enqueueing ``PackedPictureDecoder``) and harvest.  With `graph`
+    (the default) each picture replays its key's captured step
+    (``STEPS``): ship copies the blob and the reference planes into the
+    step's static inputs, dispatch replays it and clones its planes;
+    graph=False enqueues ``PackedPictureDecoder`` op by op.  The output
+    is the same bytes either way.  Decodes in several threads or on
+    several CUDA streams take turns at the shared steps, one picture's
+    copies, replay and clones at a time (``StepCache.hold``)."""
     from .avc import split_annexb
     from .avc.dpb import DecodedPictureBuffer
     from .avc.slice_header import SliceHeader, SliceType
@@ -251,6 +280,13 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
     bufs = None           # two pinned blobs, made at the first picture
     slot_ev = [None, None]
     model = None
+
+    def get_model():
+        nonlocal model
+        if model is None:
+            model = PackedPictureDecoder(mb_w, mb_h, dev)
+        return model
+
     npad = n = n4 = 0
     cur = 0
 
@@ -292,7 +328,6 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
             npad = round_up(n, BLK)
             bufs = [_alloc(npad, n, n4, W, ecap, ovcap, pin=cuda)
                     for _ in range(2)]
-            model = PackedPictureDecoder(mb_w, mb_h, dev)
         if bool((out["kind"][:n] == 3).any()):     # PCM -> native restart
             return to_host()
         is_inter_pic = bool((out["kind"][:n] >= 4).any()
@@ -397,24 +432,35 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                 v["misc"][:] = 0
                 wp_mode = 0
 
-        with tm.stage("ship"):
-            host = torch.from_numpy(blob)
-            if cuda:
-                dblob = host.to(dev, non_blocking=True)
-                slot_ev[cur] = torch.cuda.Event()
-                slot_ev[cur].record(torch.cuda.current_stream(dev))
-            else:
-                dblob = host
-            refs = None
-            if used_keys:
-                refs = tuple(torch.stack([planes[k][p] for k in used_keys])
-                             for p in range(3))
         nlists = (0 if not is_inter_pic else
                   2 if any(h.slice_type == SliceType.B for h in headers)
                   else 1)
-        with tm.stage("dispatch"):
-            y, cb, cr = model(dblob, W, ecap, ovcap, refs, nlists, wp_mode,
-                              deblocked, pps.chroma_qp_index_offset, off1)
+        c0 = pps.chroma_qp_index_offset
+        host = torch.from_numpy(blob)
+        refs = [[planes[k][p] for k in used_keys] for p in range(3)] \
+            if used_keys else []
+        key = (dev, mb_w, mb_h, deblocked, wp_mode, c0, off1, W, ecap,
+               ovcap, nlists, len(used_keys))
+        with (STEPS.hold(key, lambda: _picture_fn(
+                get_model(), W, ecap, ovcap, nlists, wp_mode, deblocked, c0,
+                off1), [host, *refs], dev) if graph
+              else contextlib.nullcontext()) as step:
+            with tm.stage("ship"):
+                if graph:
+                    step.load(host, *refs)
+                else:
+                    dblob = host.to(dev, non_blocking=True) if cuda else host
+                    refs = tuple(torch.stack(r) for r in refs) or None
+                if cuda:
+                    slot_ev[cur] = torch.cuda.Event()
+                    slot_ev[cur].record(torch.cuda.current_stream(dev))
+            with tm.stage("dispatch"):
+                if graph:
+                    y, cb, cr = step()
+                else:
+                    y, cb, cr = get_model()(dblob, W, ecap, ovcap, refs,
+                                            nlists, wp_mode, deblocked, c0,
+                                            off1)
 
         pic = dpb.mark_and_store(sps, h0, nal0, poc)
         if pic is not None:

@@ -8,8 +8,10 @@ coefficients (kernel B1), applies the |v|>127 and heavy-MB fixes,
 derives qp_c, slice availability and the intra modes, runs stage A
 (inverse quantisation + IDCT, plain tensor code), the intra wavefront
 (kernel B2) and, for streams that enable it, the in-loop filter (kernel
-B3).  Work on the device is asynchronous: while it reconstructs batch k,
-the host entropy-decodes batch k+1.
+B3).  The device work of a batch runs as one captured CUDA graph per
+static key (``STEPS``, the counterpart of the JAX pipeline's
+``_PACKED_FN_CACHE``).  Work on the device is asynchronous: while it
+reconstructs batch k, the host entropy-decodes batch k+1.
 
 Counterpart of ``dryv_tpu/gop_pipeline.py``.  That module imports jax
 (through ``dryv_tpu.pipeline``), so the numpy helpers this one needs are
@@ -19,12 +21,16 @@ copies, held equal to their originals by ``tests/test_torch_helpers.py``:
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
 from .coeffs import KIND_I8
 
 from .device import resolve_device
+from .graphs import StepCache
 from .kernels.deblock import deblock, deblock_precompute, pack_params
 from .kernels.densify import densify
 from .kernels.geometry import BLK, L, round_up
@@ -211,6 +217,12 @@ class PackedGopDecoder(torch.nn.Module):
         return deblock(pack_params(pre), y, cb, cr, mb_w, mb_h)
 
 
+# one captured step per key (device, mb_w, mb_h, F, deblocked, c0, c1, W,
+# ecap, ovcap): the key of the JAX pipeline's make_packed_gop_fn; a
+# stream uses one, and a cap growth adds one
+STEPS = StepCache(max_keys=8)
+
+
 def wire_syntax(i16, u8, mb_w, mb_h, c0, c1, tabs):
     """The syntax dict stage A and B2 read, from dense coefficient rows
     i16 [F, n, 408] and the wire's per-MB bytes u8 [F, n, 19] (layout of
@@ -289,7 +301,8 @@ def _pcm_batch_rows(batch, sps, pps, F, n, n_threads):
 def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                                 n_threads: int = 0, device="cuda",
                                 device_out: bool = False,
-                                stacked_out: bool = False, timers=None):
+                                stacked_out: bool = False, timers=None,
+                                graph: bool = True):
     """Decode an Annex-B all-intra stream with the batched device pipeline.
 
     Returns a list of DecodedFrame (host planes, cropped); with
@@ -305,7 +318,14 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     pipeline sends them to its own; that path hands the ones outside the
     device scope (inter, non-4:2:0, lossless, FMO, high bit depth) on to
     the native C++ decoder, counted in
-    ``pipeline.decode_annexb_fast.host_calls``."""
+    ``pipeline.decode_annexb_fast.host_calls``.  With `graph` (the
+    default) each batch replays its key's captured step (``STEPS``),
+    and the output tensors are clones of the step's static outputs;
+    graph=False enqueues ``PackedGopDecoder`` op by op.  A batch holding
+    PCM MBs (which x264 never emits, and which the JAX pipeline also
+    runs apart) always goes op by op through ``decode_rows``.  Decodes
+    in several threads or on several CUDA streams take turns at the
+    shared steps (``StepCache.hold``)."""
     from .decoder import DecodedFrame
     from .native.entropy import decode_pack_picture_islices
     from .utils.obs import StageTimers
@@ -320,7 +340,8 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
             raise ValueError("device_out/stacked_out need a stream inside "
                              "the batched all-intra scope")
         decode_annexb_gop_pipelined.fallback_calls += 1
-        return decode_annexb_fast(stream, n_threads=n_threads, device=dev)
+        return decode_annexb_fast(stream, n_threads=n_threads, device=dev,
+                                  graph=graph)
 
     mb_w, mb_h = sps.pic_width_in_mbs, sps.frame_height_in_mbs
     n = mb_w * mb_h
@@ -328,9 +349,14 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     F = gop
     deblocked = any(h.deblocking is None or h.deblocking.disable_idc != 1
                     for _, hs in pics for h in hs)
-    model = PackedGopDecoder(mb_w, mb_h, F, deblocked,
-                             pps.chroma_qp_index_offset,
-                             pps.second_chroma_qp_offset, dev)
+    c0, c1 = pps.chroma_qp_index_offset, pps.second_chroma_qp_offset
+    model = None
+
+    def get_model():
+        nonlocal model
+        if model is None:
+            model = PackedGopDecoder(mb_w, mb_h, F, deblocked, c0, c1, dev)
+        return model
 
     results = []
     pending = None
@@ -462,7 +488,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                 i16, u8, pcm_y, pcm_c = (torch.from_numpy(a).to(dev)
                                          for a in rows)
             with tm.stage("dispatch"):
-                r = to_host(model.decode_rows(i16, u8, pcm_y, pcm_c))
+                r = to_host(get_model().decode_rows(i16, u8, pcm_y, pcm_c))
             if pending is not None:
                 with tm.stage("harvest"):
                     harvest(pending)
@@ -475,16 +501,23 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                 for k in ("bmp", "cnt", "u8", "vals", "exc_idx",
                           "exc_delta", "ovf_idx", "ovf_rows"):
                     b[k][i] = b[k][last]
-        with tm.stage("ship"):
-            host = torch.from_numpy(b["_blob"])
-            if cuda:
-                blob = host.to(dev, non_blocking=True)
-                slot_ev[cur] = torch.cuda.Event()
-                slot_ev[cur].record(torch.cuda.current_stream(dev))
-            else:
-                blob = host
-        with tm.stage("dispatch"):
-            r = to_host(model(blob, W, ecap, ovcap))
+        host = torch.from_numpy(b["_blob"])
+        with (STEPS.hold(
+                (dev, mb_w, mb_h, F, deblocked, c0, c1, W, ecap, ovcap),
+                lambda: functools.partial(get_model(), W=W, ecap=ecap,
+                                          ovcap=ovcap), [host], dev)
+              if graph else contextlib.nullcontext()) as step:
+            with tm.stage("ship"):
+                if graph:
+                    step.load(host)
+                else:
+                    blob = host.to(dev, non_blocking=True) if cuda else host
+                if cuda:
+                    slot_ev[cur] = torch.cuda.Event()
+                    slot_ev[cur].record(torch.cuda.current_stream(dev))
+            with tm.stage("dispatch"):
+                r = to_host(step() if graph else
+                            get_model()(blob, W, ecap, ovcap))
         if pending is not None:
             with tm.stage("harvest"):
                 harvest(pending)

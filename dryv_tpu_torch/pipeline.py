@@ -10,7 +10,9 @@ entropy stage (``decode_annexb_fast``) or the Python one
 (``kernels.transform``), kernel B2 with F = 1 and, for streams that
 enable it, the edge parameters and kernel B3.  The JAX package's XLA
 scan wavefront and deblock (``_build``) have no counterpart here: B2 and
-B3 and their plain versions do that job.
+B3 and their plain versions do that job.  Its jit does: the device work
+of a picture runs as one captured CUDA graph per static key
+(``STEPS``).
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .graphs import StepCache
 from .kernels.deblock import deblock, deblock_precompute, pack_params
-from .kernels.geometry import LS4_FLAT, LS8_FLAT
+from .kernels.geometry import LS4_FLAT, LS8_FLAT, PRE_KEYS
 from .kernels.transform import stage_a_residuals
 from .kernels.wavefront import intra_recon, recon_inputs
 from .syntax import stack_frames, syntax_tensors
@@ -110,14 +113,20 @@ def _cached_tables(device, ls4y, ls4cb, ls4cr, ls8y):
                                     for b in (ls4y, ls4cb, ls4cr, ls8y)))
 
 
+def _lists_key(ls4=None, ls8=None):
+    """The content of LevelScale lists ls4 and ls8 (flat when None) as a
+    hashable key."""
+    ls4 = (LS4_FLAT,) * 3 if ls4 is None else ls4
+    ls8 = LS8_FLAT if ls8 is None else ls8
+    return tuple(np.ascontiguousarray(a, np.int32).tobytes()
+                 for a in (*ls4, ls8))
+
+
 def tables_for(device, ls4=None, ls8=None):
     """``decoder_tables`` for LevelScale lists ls4 (3 x [6,4,4]: Y, Cb,
     Cr) and ls8 ([6,8,8], Y), flat when None; cached by their content,
     so a stream builds its tables once and not for every picture."""
-    ls4 = (LS4_FLAT,) * 3 if ls4 is None else ls4
-    ls8 = LS8_FLAT if ls8 is None else ls8
-    return _cached_tables(str(device), *(
-        np.ascontiguousarray(a, np.int32).tobytes() for a in (*ls4, ls8)))
+    return _cached_tables(str(device), *_lists_key(ls4, ls8))
 
 
 def recon_syntax(s, tables, mb_w, mb_h, halo=None):
@@ -146,20 +155,51 @@ def deblock_pre_of(fs, slice_id, headers, pps, device):
         pps.second_chroma_qp_offset, tables_for(device))
 
 
+# one captured step per key (device, mb_w, mb_h, deblocked, the syntax
+# tensors' names, which PCM pictures extend, and the content of the
+# LevelScale lists): the counterpart of the jitted _build recon
+STEPS = StepCache(max_keys=8)
+
+
+def _recon_fn(tabs, mb_w, mb_h, names):
+    """fn(*syntax tensors in `names` order, *PRE_KEYS params if
+    deblocked) -> (y, cb, cr): stage A, B2 and B3."""
+    def fn(*xs):
+        y, cb, cr = recon_syntax(dict(zip(names, xs)), tabs, mb_w, mb_h)
+        if len(xs) > len(names):
+            prm = pack_params(dict(zip(PRE_KEYS, xs[len(names):])))
+            y, cb, cr = deblock(prm, y, cb, cr, mb_w, mb_h)
+        return y, cb, cr
+    return fn
+
+
 def reconstruct_frame(fs, ls4=None, ls8=None, deblock_pre=None,
-                      device="cuda"):
+                      device="cuda", graph: bool = True):
     """One FrameSyntax -> (y, cb, cr) uint8 numpy planes (uncropped).
 
     Counterpart of ``reconstruct_frame_jax`` (``dryv_tpu/pipeline.py``
     :61): stage A with the tables of ls4/ls8, B2 with F = 1, then B3 when
-    `deblock_pre` (``deblock_pre_of``) is given."""
+    `deblock_pre` (``deblock_pre_of``) is given.  With `graph` (the
+    default) the syntax tensors and the edge parameters are copied into
+    the static inputs of the key's captured step, which is replayed
+    (one thread or stream at a time, ``StepCache.hold``)."""
     dev = resolve_device(device)
-    tabs = tables_for(dev, ls4, ls8)
-    y, cb, cr = recon_syntax(syntax_tensors(stack_frames([fs]), dev), tabs,
-                             fs.mb_w, fs.mb_h)
+    lists = _lists_key(ls4, ls8)
+    tabs = _cached_tables(str(dev), *lists)
+    s = syntax_tensors(stack_frames([fs]), "cpu" if graph else dev)
+    names = tuple(sorted(s))
+    xs = [s[k] for k in names]
     if deblock_pre is not None:
-        y, cb, cr = deblock(pack_params(deblock_pre), y, cb, cr, fs.mb_w,
-                            fs.mb_h)
+        xs += [deblock_pre[k] for k in PRE_KEYS]
+    if graph:
+        with STEPS.hold((dev, fs.mb_w, fs.mb_h, deblock_pre is not None,
+                         names, lists),
+                        lambda: _recon_fn(tabs, fs.mb_w, fs.mb_h, names),
+                        xs, dev) as step:
+            step.load(*xs)
+            y, cb, cr = step()
+    else:
+        y, cb, cr = _recon_fn(tabs, fs.mb_w, fs.mb_h, names)(*xs)
     return y[0].cpu().numpy(), cb[0].cpu().numpy(), cr[0].cpu().numpy()
 
 
@@ -176,7 +216,8 @@ def _level_scales(sps, pps):
 
 
 def decode_annexb_fast(stream: bytes, max_frames: int = 0,
-                       n_threads: int = 0, device="cuda"):
+                       n_threads: int = 0, device="cuda",
+                       graph: bool = True):
     """C++ entropy stage + device reconstruction, one picture at a time.
 
     Counterpart of ``decode_annexb_fast`` (``dryv_tpu/pipeline.py``
@@ -184,7 +225,8 @@ def decode_annexb_fast(stream: bytes, max_frames: int = 0,
     stream with a picture outside the device scope (inter, non-4:2:0,
     field, lossless, FMO, high bit depth) goes whole to the native C++
     decoder (the port's ``native.full``), as there, and is counted in
-    ``decode_annexb_fast.host_calls``.  Returns cropped DecodedFrames."""
+    ``decode_annexb_fast.host_calls``.  Returns cropped DecodedFrames.
+    `graph` is ``reconstruct_frame``'s."""
     from .coeffs import pack_from_native
     from .decoder import DecodedFrame
     from .native.entropy import decode_picture_islices
@@ -209,7 +251,7 @@ def decode_annexb_fast(stream: bytes, max_frames: int = 0,
                for h in headers):
             pre = deblock_pre_of(fs, out["slice_id"], headers, pps, dev)
         y, cb, cr = reconstruct_frame(fs, ls4, ls8, deblock_pre=pre,
-                                      device=dev)
+                                      device=dev, graph=graph)
         frames.append(DecodedFrame(y, cb, cr).crop(sps))
         if max_frames and len(frames) >= max_frames:
             break

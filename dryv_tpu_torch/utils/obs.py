@@ -23,6 +23,15 @@ def logger(tag: str) -> logging.Logger:
     return logging.getLogger(f"dryv_tpu_torch.{tag}")
 
 
+def enable_debug_log(path: str = "debug.log") -> None:
+    """File log of every parse stage (the reference's debug.log)."""
+    root = logging.getLogger("dryv_tpu_torch")
+    root.setLevel(logging.DEBUG)
+    fh = logging.FileHandler(path, mode="w")
+    fh.setFormatter(logging.Formatter("[%(name)s] %(message)s"))
+    root.addHandler(fh)
+
+
 class StageTimers:
     """Accumulates wall time + work counters per pipeline stage."""
 

@@ -1,10 +1,14 @@
 """MP4 facade of the port: demux with the port's own container layer, and
 decoding routed by backend as ``dryv_tpu.video.Video.decode_frames``
 routes it.  The demux (``__init__``, the info properties and
-``annexb_stream``) follows ``dryv_tpu/video.py``."""
+``annexb_stream``), ``SeekPosition`` and ``write_yuv`` follow
+``dryv_tpu/video.py``."""
 from __future__ import annotations
 
 import contextlib
+from dataclasses import dataclass
+
+import numpy as np
 
 from .avc import NalUnit, split_avcc, to_annexb
 from .container import MP4File
@@ -13,6 +17,26 @@ from .gop_pipeline import decode_annexb_gop_pipelined
 from .pipeline import decode_annexb_fast
 
 BACKENDS = ("torch", "device-ipb", "native", "scalar")
+
+
+@dataclass
+class SeekPosition:
+    """Seek grammar: '12s' | '1500ms' | '50%' | '1234ts' (a copy of
+    ``dryv_tpu/video.py``'s)."""
+    kind: str = "ts"
+    value: float = 0.0
+
+    @classmethod
+    def parse(cls, s: str) -> "SeekPosition":
+        s = s.strip()
+        for suffix, kind in (("ms", "ms"), ("s", "s"), ("%", "pct"),
+                             ("ts", "ts")):
+            if s.endswith(suffix):
+                try:
+                    return cls(kind, float(s[:-len(suffix)]))
+                except ValueError:
+                    break
+        return cls("ts", 0.0)
 
 
 class TorchVideo:
@@ -33,18 +57,38 @@ class TorchVideo:
     def open(cls, path) -> "TorchVideo":
         return cls(path)
 
+    @property
+    def width(self) -> float:
+        return self.trak.tkhd.width if self.trak.tkhd else 0
+
+    @property
+    def height(self) -> float:
+        return self.trak.tkhd.height if self.trak.tkhd else 0
+
+    @property
+    def duration_seconds(self) -> float:
+        if not self.mdhd or not self.mdhd.timescale:
+            return 0.0
+        return self.mdhd.duration / self.mdhd.timescale
+
+    @property
+    def rotation(self) -> float:
+        tkhd = self.trak.tkhd
+        return tkhd.matrix.rotation() if tkhd and tkhd.matrix else 0.0
+
+    @property
+    def meta_tags(self) -> dict:
+        return self.mp4.moov.meta.tags if self.mp4.moov.meta else {}
+
     def info(self) -> dict:
-        tkhd, mdhd = self.trak.tkhd, self.mdhd
         return {
             "codec": self.codec,
-            "width": tkhd.width if tkhd else 0,
-            "height": tkhd.height if tkhd else 0,
-            "duration_s": (mdhd.duration / mdhd.timescale
-                           if mdhd and mdhd.timescale else 0.0),
-            "rotation": (tkhd.matrix.rotation() if tkhd and tkhd.matrix
-                         else 0.0),
-            "timescale": mdhd.timescale if mdhd else 0,
-            "language": mdhd.language if mdhd else "und",
+            "width": self.width,
+            "height": self.height,
+            "duration_s": self.duration_seconds,
+            "rotation": self.rotation,
+            "timescale": self.mdhd.timescale if self.mdhd else 0,
+            "language": self.mdhd.language if self.mdhd else "und",
         }
 
     def annexb_stream(self) -> bytes:
@@ -99,3 +143,13 @@ class TorchVideo:
                 from .decoder import decode_annexb_scalar
                 frames = decode_annexb_scalar(stream, max_frames=max_frames)
         return sorted(frames, key=lambda f: f.poc)
+
+    def write_yuv(self, path, *frames):
+        """Planar YUV dump, Y then Cb then Cr as uint8 (the scalar
+        decoder's planes are wider integers), of one frame as
+        ``Video.write_yuv`` writes it, or of several one after
+        another."""
+        with open(path, "wb") as f:
+            for frame in frames:
+                for plane in (frame.y, frame.cb, frame.cr):
+                    f.write(plane.astype(np.uint8).tobytes())

@@ -189,3 +189,55 @@ def test_port_builds_its_own_host_library():
     assert lib.parent == root / "build"
     assert lib.name.startswith("libdryv_host_")
     assert all(s.parent == root / "native" for s in build.SRCS)
+
+
+def test_dpb_checkpoint_copy_round_trip_mid_gop():
+    """``utils.ckpt`` of the port: the mid-GOP round trip of
+    tests/test_ckpt.py on ``bench_ipb.264`` through the port's own DPB,
+    each snapshot the same JSON as the JAX package's at the same point,
+    and the restored buffer deciding every later picture as the
+    uninterrupted one does."""
+    from pathlib import Path
+
+    from dryv_tpu.utils import snapshot_dpb as jax_snapshot
+    from dryv_tpu_torch.utils import restore_dpb, snapshot_dpb
+
+    stream = (Path(__file__).resolve().parent.parent / "benchdata"
+              / "bench_ipb.264").read_bytes()
+    pics = {p: [(h[0], nal, sps) for (_, h, sps, _, _), nal in zip(
+        _pictures(p, stream), _first_nals(p, stream))] for p in PKGS}
+    dpbs = {p: _mod(p, "avc.dpb").DecodedPictureBuffer() for p in PKGS}
+
+    def key(p):
+        return (p.frame_num, p.pic_num, p.long_term_pic_num,
+                p.long_term_frame_idx, p.pic_order_cnt, p.is_long_term,
+                p.is_reference, p.frame_idx, tuple(p.field_ref))
+
+    def step(dpb, h, nal, sps):
+        poc = dpb.decode_poc(sps, h, nal)
+        dpb.build_ref_lists(sps, h, poc)
+        lists = ([key(p) for p in dpb.ref_list0],
+                 [key(p) for p in dpb.ref_list1])
+        dpb.mark_and_store(sps, h, nal, poc)
+        return poc, lists, [key(p) for p in dpb.pictures]
+
+    cut = 4     # after the 4th coded picture, inside the B run
+    assert len(pics["dryv_tpu_torch"]) >= 6
+    for i in range(cut):
+        for p in PKGS:
+            step(dpbs[p], *pics[p][i])
+    blob = snapshot_dpb(dpbs["dryv_tpu_torch"])
+    assert blob == jax_snapshot(dpbs["dryv_tpu"])
+    resumed = restore_dpb(blob)
+    assert snapshot_dpb(resumed) == blob
+    for h, nal, sps in pics["dryv_tpu_torch"][cut:]:
+        assert step(resumed, h, nal, sps) == \
+            step(dpbs["dryv_tpu_torch"], h, nal, sps)
+
+
+def _first_nals(pkg, stream):
+    """The first NAL unit of each picture, split by `pkg`'s layers."""
+    dec = _mod(pkg, "decoder")
+    sd = dec.SyntaxDecoder()
+    rest = sd.feed_parameter_sets(list(_mod(pkg, "avc").split_annexb(stream)))
+    return [nals[0] for nals in dec.group_access_units(rest)]
