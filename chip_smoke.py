@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --compare DIR   # also time earlier B1 and B3
+    python3 chip_smoke.py --compare DIR [DIR ...]   # also time earlier
+                                                    # B1, B3, B4
 
 Builds the port's C++ host library (g++) and CUDA kernels (nvcc) from
 the sources in this checkout, and holds each kernel against its plain
@@ -12,12 +13,19 @@ and deblock and the I/P/B path's densify; one band of 120x17 MBs x 4
 for the banded wavefront; densify at W = 32, 96 and 256; deblock with every edge on, with random
 slices and disable_deblocking_filter_idc, and on inter edge parameters;
 motion compensation at 120x68 MBs over stacks of 3 pictures, P and B,
-weighted prediction 0/1/2, local and far vectors), with a tolerance of
-0: the decoder is bit-exact.  Each kernel's bound is the larger of the
-bytes it must move (each input read once, each output written once)
-over the card's 3.35 TB/s and, for motion compensation, the integer
-operations its inputs need over the card's int32 rate (64 a clock per
-SM, at its SM count and its maximum SM clock).  Then it drives each path of
+weighted prediction 0/1/2, random vectors per 4x4 block near and far,
+and H.264 macroblock layouts from ``testing.motion.partitioned_field``,
+and on every P and B picture of ``bench_ipb.264``, ``bench1080p_ipb.264``
+and the corpus streams of ``tests/conformance`` that the I/P/B path
+takes, each stream bit-exact to the native C++ decode and each picture
+described by its groups per MB and its share of full-pel MBs), with a
+tolerance of 0: the decoder is bit-exact.  Each kernel's bound is the
+larger of the bytes it must move (each input read once, each output
+written once) over the card's 3.35 TB/s and, for motion compensation,
+the integer operations its inputs need (each half-sample intermediate
+once per group of blocks sharing list, slot and vector in an MB) over
+the card's int32 rate (64 a clock per SM, at its SM count and its
+maximum SM clock).  Then it drives each path of
 the port with the launch counters set to 0 just before and read just
 after, and checks every frame bit-exact against the native C++ decoder
 or a stored golden:
@@ -57,12 +65,17 @@ decode, with each path's device span per batch or picture (CUDA events
 around its device call), its host enqueue, its cudaLaunchKernel and
 cudaGraphLaunch calls (CPU-activity torch.profiler traces, after the
 census) and its captured steps (keys, capture ms, the MiB of their
-graph pool).  With --compare DIR (a
-directory holding an earlier tree's ``densify.cu`` and ``deblock.cu``
-with the ``common.cuh`` they include, not part of the repo; their C
-entries as they were before B3 took a scratch argument) it also builds
-those kernels and times them and the current ones in turns (old, new,
-new, old) at each shape.  Every timing line ends with the card's
+graph pool).  With --compare DIR [DIR ...]
+(directories outside the repo's sources, each holding an earlier tree's
+``densify.cu``, ``deblock.cu`` or ``inter_mc.cu``, any of them, with
+the ``common.cuh`` they include; densify and deblock with their C
+entries as they were before B3 took a scratch argument, inter_mc with
+today's) it also builds those kernels (one nvcc per source, all at
+once), prints their ptxas report, and times them and the current ones
+in turns (old, new, new, old; B1 and B3 of the first DIR that holds
+them, B4 of every DIR): B4 in every case above and on every real
+picture beside its bound, with sums per stream and over the pictures
+under 90% full-pel MBs.  Every timing line ends with the card's
 ``nvidia-smi`` name and power limit.  Any failure ends the run with a
 non-zero exit and no result line.  The last line is {"ok": true,
 "device": {...}}; the line before it holds the per-kernel JSON.
@@ -73,6 +86,7 @@ import argparse
 import contextlib
 import ctypes
 import functools
+import glob
 import json
 import os
 import statistics
@@ -96,11 +110,18 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 # H100 SXM (132 SMs, 1980 MHz)
 INT32_OPS_PER_CLOCK_PER_SM = 64
 # integer operations of one 4x4 luma block's quarter-pel prediction by
-# phase 4*fy + fx: a 6-tap value with its rounding 13, an average 3, the
-# j lattice (36 horizontal taps, then 6-tap per sample) 532
+# phase 4*fy + fx, the block alone: a 6-tap value with its rounding 13,
+# an average 3, the j lattice 532 (36 unrounded horizontal sums of 9
+# operations, then a 6-tap of those with its rounding per sample)
 LUMA_OPS = (0, 256, 208, 256, 256, 464, 644, 464,
             208, 788, 532, 788, 256, 464, 644, 464)
-CHROMA_OPS = 80     # two 2x2 bilinear blocks: weights, 4 taps a sample
+J_PHASES = (6, 9, 10, 11, 14)
+# blocks that share list, slot and vector in one MB (a group) need each
+# unrounded horizontal sum once: 16 a block and 20 a vertical run of
+# blocks in a column of the group, where a block alone needs 36
+J_SUM_OPS = 9
+CHROMA_SAMPLE_OPS = 9    # 4 products, 3 sums, the rounding
+CHROMA_GROUP_OPS = 8     # the four bilinear weights, once a group
 
 
 def fail(msg):
@@ -229,14 +250,26 @@ def int32_ops_per_s():
     return INT32_OPS_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
 
 
+def popcount16(m):
+    return ((np.asarray(m)[..., None] >> np.arange(16)) & 1).sum(-1)
+
+
 def b4_bound(refs_y, refs_cb, refs_cr, rs0, rs1, mv0, mv1, wp, mb_w, mb_h):
     """(bound ms, "bytes" or "operations") of one B4 call on these
     inputs, the larger of: the predictions written, each list's slots
     (and reference indices under weighted prediction) and the WP tables
     read, and for every block and list it uses, its vector and its 16
     luma + 8 chroma reference samples once, over the memory rate; the
-    operations its phases need (``LUMA_OPS``, ``CHROMA_OPS``) and the
-    combine's 6 per sample (9 when bi-predicted), over the int32 rate."""
+    operations the inputs need over the int32 rate.  Those are counted
+    per group (``testing.motion.mb_groups``: the blocks of one MB that
+    share list, slot and vector), each half-pel intermediate once: for a
+    group of s blocks in r vertical runs, s x ``LUMA_OPS`` of its phase,
+    less 20 x ``J_SUM_OPS`` x (s - r) when the phase takes j (the
+    horizontal sums the group's blocks share), 8 s chroma samples of
+    ``CHROMA_SAMPLE_OPS`` and ``CHROMA_GROUP_OPS``; then the combine's 6
+    a sample (9 when bi-predicted), 24 samples a block."""
+    from dryv_tpu_torch.testing.motion import mb_groups
+
     n = mb_w * mb_h
     mode = wp["mode"]
     lists = [(rs0, mv0)] + ([(rs1, mv1)] if rs1 is not None else [])
@@ -245,13 +278,17 @@ def b4_bound(refs_y, refs_cb, refs_cr, rs0, rs1, mv0, mv1, wp, mb_w, mb_h):
         nbytes += 2 * 32 * 6 * 2 + 256 * 2 * 2 + 16
     ops = 0
     used = []
-    phase_ops = torch.tensor(LUMA_OPS, device=rs0.device)
     for rs, mv in lists:
+        rs, mv = rs.cpu().numpy(), mv.cpu().numpy()
         u = rs >= 0
-        k = int(u.sum())
-        nbytes += k * (4 + 24)
-        ph = (mv[:, 1].long() & 3) * 4 + (mv[:, 0].long() & 3)
-        ops += int(phase_ops[ph][u].sum()) + CHROMA_OPS * k
+        nbytes += int(u.sum()) * (4 + 24)
+        _, mask, vec = mb_groups(rs, mv, mb_w, mb_h)
+        size = popcount16(mask)
+        runs = popcount16(mask & ~(mask << 4) & 0xFFFF)
+        ph = (vec[:, 1] & 3) * 4 + (vec[:, 0] & 3)
+        ops += int((size * np.take(LUMA_OPS, ph)
+                    - 20 * J_SUM_OPS * (size - runs) * np.isin(ph, J_PHASES)
+                    + 8 * CHROMA_SAMPLE_OPS * size + CHROMA_GROUP_OPS).sum())
         used.append(u)
     either = used[0] if len(used) == 1 else used[0] | used[1]
     both = 0 if len(used) == 1 else int((used[0] & used[1]).sum())
@@ -266,8 +303,7 @@ def motion_field(rng, n4, R, reach, dev):
     [n4, 2 lists, 2] within +-reach quarter pels, int8 slots and
     reference indices [n4, 4] (rs0, rs1, ri0, ri1; a quarter of the
     blocks use list 0 only, a quarter list 1 only, a quarter both, a
-    quarter none), and WP tables (explicit [2,32,6] and implicit [256,2]
-    int16, zero-padded; misc int32 = denominators 5 and 6, n_ref1 6)."""
+    quarter none), and WP tables (``wp_tables``)."""
     mv = rng.integers(-reach, reach + 1, (n4, 2, 2)).astype(np.int16)
     use = rng.integers(0, 4, n4)
     rs0 = np.where(use & 1, rng.integers(0, R, n4), -1)
@@ -275,13 +311,35 @@ def motion_field(rng, n4, R, reach, dev):
     rsri = np.stack([rs0, rs1, np.where(rs0 >= 0, rng.integers(0, 6, n4),
                                         -1),
                      np.where(rs1 >= 0, rng.integers(0, 6, n4), -1)], 1)
+    return [torch.from_numpy(a).to(dev)
+            for a in (mv, rsri.astype(np.int8))] + wp_tables(rng, 6, dev)
+
+
+def partitioned_motion(rng, R, nlists, kinds, dev, full_pel=False):
+    """``motion_field``'s tensors for H.264 MB layouts of the kinds given
+    at MB_W x MB_H (``testing.motion.partitioned_field``, reference
+    indices below 3 in list 0 and 2 in list 1); full_pel: vectors
+    rounded down to full samples."""
+    from dryv_tpu_torch.testing.motion import partitioned_field
+
+    f = partitioned_field(rng, MB_W, MB_H, R, nlists, kinds)
+    mv = np.stack([f["mv0"], f["mv1"]], 1)
+    if full_pel:
+        mv &= ~3
+    rsri = np.stack([f["rs0"], f["rs1"], f["ri0"], f["ri1"]], 1)
+    return [torch.from_numpy(a).to(dev) for a in (mv, rsri)] + \
+        wp_tables(rng, 2, dev)
+
+
+def wp_tables(rng, n_ref1, dev):
+    """Random WP tables: explicit [2,32,6] and implicit [256,2] int16,
+    zero-padded; misc int32 = denominators 5 and 6, n_ref1."""
     expl = np.zeros((2, 32, 6), np.int16)
     expl[:, :6] = rng.integers(-128, 128, (2, 6, 6))
     imp = np.zeros((256, 2), np.int16)
     imp[:36] = rng.integers(-64, 129, (36, 2))
-    t = [torch.from_numpy(a).to(dev)
-         for a in (mv, rsri.astype(np.int8), expl, imp)]
-    return t + [torch.tensor([5, 6, 6, 0], dtype=torch.int32, device=dev)]
+    return [torch.from_numpy(a).to(dev) for a in (expl, imp)] + [
+        torch.tensor([5, 6, n_ref1, 0], dtype=torch.int32, device=dev)]
 
 
 def b4_args(stacks, field, nlists, mode, mb_w, mb_h):
@@ -320,36 +378,43 @@ def inter_edge_params(rng, mb_w, mb_h, tables, dev):
         t(rng.integers(-1, 3, (H4, W4)))))
 
 
-# The C entries of the earlier kernels --compare builds: name, argument
-# kinds ("p" pointer, "i" int; the stream follows), as the tree before
-# this B3 had them.
+# The C entries of the earlier kernels --compare builds: source, name,
+# argument kinds ("p" pointer, "i" int; the stream follows).  densify.cu
+# and deblock.cu as the trees before B3 took a scratch argument had them,
+# inter_mc.cu as every tree since B4 came has it.
 OLD_ENTRIES = {"densify.cu": ("dt_densify", "pppii"),
-               "deblock.cu": ("dt_deblock", "ppppiii")}
+               "deblock.cu": ("dt_deblock", "ppppiii"),
+               "inter_mc.cu": ("dt_inter_mc", "p" * 14 + "i" * 10)}
 
 
-def old_kernels(src_dir):
-    """Builds B1 and B3 of an earlier tree (``src_dir/densify.cu`` and
-    ``deblock.cu``, each with the ``common.cuh`` beside it) into one
-    library and returns {"densify": fn, "deblock": fn} with the current
-    wrappers' arguments and results."""
+def old_kernels(src_dir, label):
+    """Builds those of B1, B3 and B4 that an earlier tree's sources in
+    ``src_dir`` hold (``densify.cu``, ``deblock.cu``, ``inter_mc.cu``,
+    with the ``common.cuh`` they include) into one library named after
+    `label` and returns ({"densify": fn, "deblock": fn, "inter_mc": fn},
+    those built, with the current wrappers' arguments and results;
+    nvcc's ptxas report)."""
     from pathlib import Path
 
     from dryv_tpu_torch import _build
     from dryv_tpu_torch._libbuild import build_library, library_path
 
     d = Path(src_dir).resolve()
-    srcs = [d / name for name in OLD_ENTRIES]
-    lib_path = library_path("libold_kernels", srcs + [d / "common.cuh"],
+    present = {k: v for k, v in OLD_ENTRIES.items() if (d / k).exists()}
+    if not present:
+        fail(f"--compare {src_dir}: none of {', '.join(OLD_ENTRIES)}")
+    srcs = [d / name for name in present]
+    lib_path = library_path(f"libearlier_{label}", srcs + [d / "common.cuh"],
                             " ".join(_build.NVCC_FLAGS).encode())
     nvcc = _build._nvcc()
-    build_library(lib_path, srcs,
-                  lambda s, o: [nvcc, *_build.NVCC_FLAGS, "-c", str(s),
-                                "-o", str(o)],
-                  lambda objs, out: [nvcc, "-shared", *map(str, objs),
-                                     "-o", str(out)])
+    log = build_library(lib_path, srcs,
+                        lambda s, o: [nvcc, *_build.NVCC_FLAGS, "-Xptxas",
+                                      "-v", "-c", str(s), "-o", str(o)],
+                        lambda objs, out: [nvcc, "-shared", *map(str, objs),
+                                           "-o", str(out)], force=True)
     lib = ctypes.CDLL(str(lib_path))
     fns = {}
-    for entry, kinds in OLD_ENTRIES.values():
+    for entry, kinds in present.values():
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
@@ -374,7 +439,45 @@ def old_kernels(src_dir):
         run("dt_deblock", prm, y, cb, cr, mb_w, mb_h, y.shape[0])
         return y, cb, cr
 
-    return {"densify": densify, "deblock": deblock}
+    def inter_mc(refs_y, refs_cb, refs_cr, rs0, rs1, mv0, mv1, wp, mb_w,
+                 mb_h, row0=0):
+        n, mode = mb_w * mb_h, wp["mode"]
+        pred_y = torch.empty((n, 16, 16), dtype=torch.uint8,
+                             device=refs_y.device)
+        pred_c = torch.empty((n, 2, 8, 8), dtype=torch.uint8,
+                             device=refs_y.device)
+        run("dt_inter_mc", refs_y, refs_cb, refs_cr, mv0, mv1, rs0, rs1,
+            *(wp.get(k) if mode else None
+              for k in ("ri0", "ri1", "expl", "imp", "misc")),
+            pred_y, pred_c, *refs_y.shape, mb_w, mb_h, row0, mv0.stride(0),
+            rs0.stride(0), 1 if rs1 is None else 2, mode)
+        return pred_y, pred_c
+
+    made = {"densify.cu": ("densify", densify),
+            "deblock.cu": ("deblock", deblock),
+            "inter_mc.cu": ("inter_mc", inter_mc)}
+    return dict(made[k] for k in present), log
+
+
+def earlier_builds(dirs):
+    """``old_kernels`` of each of `dirs`, built side by side (one nvcc
+    per source): {label: kernels}, the label a directory's name (made
+    unique), in the order given."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    labels = []
+    for d in dirs:
+        base = "".join(c if c.isalnum() or c in "-_." else "_" for c in
+                       os.path.basename(os.path.normpath(d))) or "dir"
+        label, k = base, 2
+        while label in labels:
+            label, k = f"{base}.{k}", k + 1
+        labels.append(label)
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        built = list(pool.map(old_kernels, dirs, labels))
+    for label, d, (_, log) in zip(labels, dirs, built):
+        print(f"ptxas of the earlier kernels of {label} ({d}):\n{log}")
+    return {label: fns for label, (fns, _) in zip(labels, built)}
 
 
 def device_kernels_in_profile(segments, names):
@@ -489,9 +592,12 @@ def sync_calls(fn):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--compare", metavar="DIR",
-                    help="time earlier B1 and B3 (DIR/densify.cu, "
-                         "DIR/deblock.cu) in turns with the current ones")
+    ap.add_argument("--compare", metavar="DIR", nargs="+",
+                    help="time earlier B1, B3 and B4 (those of "
+                         "DIR/densify.cu, DIR/deblock.cu, DIR/inter_mc.cu "
+                         "that DIR holds, with DIR/common.cuh) in turns "
+                         "with the current ones; B1 and B3 from the first "
+                         "DIR that holds them, B4 from each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -523,6 +629,8 @@ def main():
                                          tables_for)
     from dryv_tpu_torch.syntax import stack_frames, syntax_tensors
     from dryv_tpu_torch.tables import decoder_tables
+    from dryv_tpu_torch.testing.motion import (KINDS, full_pel_census,
+                                               group_census)
     from dryv_tpu_torch.utils.obs import StageTimers
 
     dev = torch.device("cuda")
@@ -547,12 +655,18 @@ def main():
     _build.lib()
     print(f"build: CUDA kernels {time.perf_counter() - t0:.2f} s "
           f"(nvcc, sm_90a, one process per source)  [{card}]")
-    old = None
+    old = {}       # B1 and B3 of the first DIR that holds them
+    old_b4 = {}    # label -> each DIR's B4
     if args.compare:
         t0 = time.perf_counter()
-        old = old_kernels(args.compare)
-        print(f"build: earlier B1 and B3 from {args.compare} "
-              f"{time.perf_counter() - t0:.2f} s  [{card}]")
+        for label, fns in earlier_builds(args.compare).items():
+            for k, fn in fns.items():
+                old.setdefault(k, fn)
+            if "inter_mc" in fns:
+                old_b4[label] = fns["inter_mc"]
+        print(f"build: earlier kernels from {' '.join(args.compare)} "
+              f"{time.perf_counter() - t0:.2f} s (one nvcc per source)  "
+              f"[{card}]")
 
     print(f"int32 peak {int32_ops_per_s() / 1e12:.3f} T/s "
           f"({INT32_OPS_PER_CLOCK_PER_SM} a clock per SM, "
@@ -581,6 +695,40 @@ def main():
     def max_err(got, want):
         return max(int((a.int() - b.int()).abs().max())
                    for a, b in zip(got, want))
+
+    def b4_census(a):
+        """MBs of one B4 call's picture by their groups over its lists."""
+        lists = [(a[3], a[5])] + ([(a[4], a[6])] if a[4] is not None
+                                  else [])
+        return group_census([(r.cpu().numpy(), v.cpu().numpy())
+                             for r, v in lists], a[8], a[9])
+
+    def b4_in_turns(label, a, bound, quiet=False):
+        """Every earlier B4 (--compare) and this one on one call's
+        arguments: bit-exact to each other, timed in turns (the earlier
+        ones in order, this one twice, the earlier ones reversed), beside
+        the bound.  Returns {build: mean ms}, "this" for this B4."""
+        want = mc_frame(*a)
+        for k, fn in old_b4.items():
+            if max_err(fn(*a), want):
+                fail(f"inter_mc {label}: the earlier B4 of {k} and the "
+                     f"current differ")
+        order = [*old_b4, "this", "this", *reversed(old_b4)]
+        t = {}
+        for k in order:
+            fn = mc_frame if k == "this" else old_b4[k]
+            t.setdefault(k, []).append(cuda_ms(lambda: fn(*a), 20))
+        bd, by = bound
+        if not quiet:
+            print(f"inter_mc {label}, CUDA events, mean of 20, in turns: "
+                  + ", ".join(f"{'this B4' if k == 'this' else k} "
+                              f"{v[0]:.4f} / {v[1]:.4f} ms"
+                              for k, v in t.items())
+                  + f"; bound {bd:.4f} ms ({by}): " + ", ".join(
+                      f"{k} {bd / statistics.mean(v):.1%}"
+                      for k, v in t.items())
+                  + f" of it; bit-exact to each other  [{card}]")
+        return {k: statistics.mean(v) for k, v in t.items()}
 
     def in_turns(label, what, time_old, time_new, reps):
         """Earlier and current kernel timed old, new, new, old."""
@@ -617,7 +765,7 @@ def main():
                    "dryv_tpu/kernels/densify.py:38", err, ms, plain, bound)
         else:
             report(f"densify at F = {nf}, W = {W}", err, ms, plain, bound)
-        if old and nf == F:
+        if old and "densify" in old and nf == F:
             if not torch.equal(old["densify"](bmp, vals), out_k):
                 fail(f"densify W={W}: the earlier B1 and the current differ")
             in_turns(f"densify bmp [{F}, {npad}, 51] vals [{F}, {npad}, "
@@ -754,7 +902,7 @@ def main():
                       f"  [{card}]")
                 if err:
                     fail(f"{key} with random slices differs (max {err})")
-        if old:
+        if old and "deblock" in old:
             prm, planes = b3_cases[key]
             if max_err(old["deblock"](prm, *[p.clone() for p in planes],
                                       MB_W, MB_H),
@@ -829,33 +977,51 @@ def main():
 
     # B4 at the I/P/B path's shape: 120x68 MBs over random stacks of 3
     # pictures; P (list 0) and B (both lists) under weighted prediction
-    # 0/1/2; vectors within 48 pixels ("local") and reaching past every
-    # edge of the picture ("far")
+    # 0/1/2; random vectors per 4x4 block within 48 pixels ("local") and
+    # reaching past every edge of the picture ("far"), and H.264 MB
+    # layouts (testing.motion.partitioned_field, a field each for P and
+    # B): every kind mixed ("mixed"), no sub-8x8 split ("coarse"), and
+    # that at full-pel vectors ("full-pel": B4's copy paths)
     n4 = 16 * n
     stacks = [torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
               .to(dev) for shape in ((3, 16 * MB_H, 16 * MB_W),
                                      (3, 8 * MB_H, 8 * MB_W),
                                      (3, 8 * MB_H, 8 * MB_W))]
+    fields = {}
+    for m, reach in (("far", 4 * (16 * MB_W + 64)), ("local", 4 * 48)):
+        fields[(m, 1)] = fields[(m, 2)] = motion_field(rng, n4, 3, reach,
+                                                       dev)
+    for m, kinds in (("mixed", KINDS), ("coarse", KINDS[:-1]),
+                     ("full-pel", KINDS[:-1])):
+        for nl in (1, 2):
+            fields[(m, nl)] = partitioned_motion(rng, 3, nl, kinds, dev,
+                                                 full_pel=m == "full-pel")
     b4_cases = {}
-    for motion, reach in (("far", 4 * (16 * MB_W + 64)), ("local", 4 * 48)):
-        field = motion_field(rng, n4, 3, reach, dev)
-        for nl, mode in ((1, 0), (1, 1), (2, 0), (2, 1), (2, 2)):
+    for (motion, nl), field in fields.items():
+        for mode in ((0, 1) if nl == 1 else (0, 1, 2)):
             args = b4_args(stacks, field, nl, mode, MB_W, MB_H)
             err = max_err(mc_frame(*args), mc_frame_wire_plain(*args))
             if err:
                 fail(f"inter_mc ({motion}, {'PB'[nl - 1]}, WP {mode}) "
                      f"differs from its plain version (max {err})")
             b4_cases[(motion, nl, mode)] = (args, cuda_ms(
-                lambda: mc_frame(*args), 20))
+                lambda: mc_frame(*args), 20), b4_bound(*args))
     print("kernel inter_mc, bit-exact in every case, CUDA events, mean of "
           "20: " + ", ".join(
-              f"{m} {'PB'[nl - 1]} WP {wm} {ms:.4f} ms (bound "
-              f"{b4_bound(*a)[0]:.4f} ms)"
-              for (m, nl, wm), (a, ms) in b4_cases.items()) + f"  [{card}]")
-    args, ms = b4_cases[("local", 2, 2)]
+              f"{m} {'PB'[nl - 1]} WP {wm} {ms:.4f} ms (bound {bd:.4f} ms, "
+              f"{by})" for (m, nl, wm), (a, ms, (bd, by)) in
+              b4_cases.items()) + f"  [{card}]")
+    for m in ("mixed", "coarse", "full-pel"):
+        print(f"B4 case {m}: MBs by groups over both lists (0 = intra), P "
+              f"{b4_census(b4_cases[(m, 1, 0)][0])}, B "
+              f"{b4_census(b4_cases[(m, 2, 0)][0])}")
+    if old_b4:
+        for (m, nl, wm), (a, _, bd) in b4_cases.items():
+            b4_in_turns(f"{m} {'PB'[nl - 1]} WP {wm}", a, bd)
+    args, ms, bd = b4_cases[("local", 2, 2)]
     record("inter_mc", "dryv_tpu_torch/csrc/inter_mc.cu",
            "dryv_tpu/kernels/inter.py:146", 0, ms,
-           cuda_ms(lambda: mc_frame_wire_plain(*args), 3), *b4_bound(*args))
+           cuda_ms(lambda: mc_frame_wire_plain(*args), 3), *bd)
 
     # one B1, B2, B3 or B4 call is one launch on the device: the first
     # segment of the trace at the end of the run
@@ -1097,7 +1263,7 @@ def main():
     census.append(("deblocked batch x3",
                    lambda: [dblk_batch(deblock, True) for _ in range(3)], c,
                    {}))
-    if old:
+    if old and "deblock" in old:
         t = [statistics.mean(dblk_batch(b3, False) for _ in range(3))
              for b3 in (old["deblock"], deblock, deblock, old["deblock"])]
         print(f"device span of the deblocked batch (eager), mean of 3 runs, "
@@ -1287,12 +1453,12 @@ def main():
     ipb = open("benchdata/bench1080p_ipb.264", "rb").read()
     ipb_ref = [(r.y, r.cb, r.cr) for r in
                decode_annexb_native(ipb, n_threads=nthreads)]
-    captured = {}     # nlists -> one B4 call's arguments on bench1080p
+    real = {}    # stream -> the arguments of its B4 calls, in order
+    cur = [None]     # the stream being decoded
     mc_of_path = device_ipb_packed.mc_frame
 
     def capture_mc(*args):
-        if args[3].shape[0] == 16 * MB_W * MB_H:
-            captured.setdefault(1 if args[4] is None else 2, args)
+        real.setdefault(cur[0], []).append(args)
         return mc_of_path(*args)
 
     def picture_call(graph):
@@ -1311,16 +1477,16 @@ def main():
         weighted-prediction mode)."""
         reset_counts()
         with spans_around(*picture_call(graph)) as spans:
-            check_frames(f"packed I/P/B bench_ipb.264 (640x368, 9 pictures"
-                         f", {('eager', 'graphed')[graph]})",
-                         decode_annexb_device_packed(
-                             ipb_small, n_threads=nthreads, device=dev,
-                             graph=graph), small_ref, "bench_ipb_golden.npz")
-            check_frames(f"packed I/P/B bench1080p_ipb.264 (1080p, 10 "
-                         f"pictures, {('eager', 'graphed')[graph]})",
-                         decode_annexb_device_packed(
-                             ipb, n_threads=nthreads, device=dev,
-                             graph=graph), ipb_ref, "native C++")
+            for cur[0], size, stream, ref, against in (
+                    ("bench_ipb.264", "640x368, 9", ipb_small, small_ref,
+                     "bench_ipb_golden.npz"),
+                    ("bench1080p_ipb.264", "1080p, 10", ipb, ipb_ref,
+                     "native C++")):
+                check_frames(f"packed I/P/B {cur[0]} ({size} pictures, "
+                             f"{('eager', 'graphed')[graph]})",
+                             decode_annexb_device_packed(
+                                 stream, n_threads=nthreads, device=dev,
+                                 graph=graph), ref, against)
         c = counts()
         seen = {}
         for *_, t in spans:
@@ -1359,14 +1525,127 @@ def main():
 
     census.append(("packed I/P/B path", ipb_graphed, c_eager,
                    {"inter_mc": "inter_mc", "densify_f1": "densify"}))
-    for nl, a in sorted(captured.items()):
-        print(f"kernel inter_mc on a {'PB'[nl - 1]} picture of "
+    first = {}    # nlists -> the first such B4 call of bench1080p_ipb.264
+    for a in real["bench1080p_ipb.264"]:
+        first.setdefault(1 if a[4] is None else 2, a)
+    for nl, a in sorted(first.items()):
+        err = max_err(mc_frame(*a), mc_frame_wire_plain(*a))
+        if err:
+            fail(f"inter_mc on a {'PB'[nl - 1]} picture of "
+                 f"bench1080p_ipb.264 differs from its plain version (max "
+                 f"{err})")
+        bd = b4_bound(*a)
+        print(f"kernel inter_mc on the first {'PB'[nl - 1]} picture of "
               f"bench1080p_ipb.264 (WP {a[7]['mode']}, stack of "
-              f"{a[0].shape[0]}), CUDA events, mean of 20: "
+              f"{a[0].shape[0]}), bit-exact, CUDA events, mean of 20: "
               f"{cuda_ms(lambda: mc_frame(*a), 20):.4f} ms, plain "
               f"{cuda_ms(lambda: mc_frame_wire_plain(*a), 3):.4f} ms, "
-              f"bound {b4_bound(*a)[0]:.4f} ms ({b4_bound(*a)[1]})  "
-              f"[{card}]")
+              f"bound {bd[0]:.4f} ms ({bd[1]}); MBs by groups over both "
+              f"lists (0 = intra): {b4_census(a)}  [{card}]")
+        if old_b4:
+            b4_in_turns(f"on the first {'PB'[nl - 1]} picture", a, bd)
+    zero = torch.empty((n, 384), dtype=torch.uint8, device=dev)
+    print(f"floor of a kernel that writes a 1080p picture's predictions: "
+          f"one zero_ of their {n} x 384 bytes, CUDA events, mean of 20: "
+          f"{cuda_ms(lambda: zero.zero_(), 20):.4f} ms  [{card}]")
+
+    # B4 on every P and B picture of the eager decodes above and of the
+    # corpus streams the packed path takes (each stream bit-exact to the
+    # native C++ decode): bit-exact to its plain version, each picture's
+    # motion described (the share of its inter MBs whose vectors are all
+    # full-pel, of its used (block, list) pairs that are fractional, its
+    # groups per MB), timed beside its bound and, with --compare, in
+    # turns with every earlier B4; sums per stream, and over the
+    # pictures under 90% full-pel MBs ("fractional")
+    phase("10b B4 on real pictures")
+    on_device = []
+    device_ipb_packed.mc_frame = capture_mc
+    try:
+        for path in sorted(glob.glob("tests/conformance/*.264")):
+            cur[0] = os.path.basename(path)
+            stream = open(path, "rb").read()
+            before = decode_annexb_device_packed.host_calls
+            check_frames(f"packed I/P/B corpus {cur[0]} (eager)",
+                         decode_annexb_device_packed(
+                             stream, n_threads=nthreads, device=dev,
+                             graph=False),
+                         [(r.y, r.cb, r.cr) for r in decode_annexb_native(
+                             stream, n_threads=nthreads)], "native C++")
+            if decode_annexb_device_packed.host_calls == before:
+                on_device.append(cur[0])
+    finally:
+        device_ipb_packed.mc_frame = mc_of_path
+    print(f"corpus streams on the packed device path: {len(on_device)} "
+          f"({', '.join(on_device)})")
+    if not any(name in real for name in on_device):
+        fail("no corpus stream reached B4")
+
+    def b4_pictures(stream, calls, each):
+        """B4 on each call of one stream; (sums of ms by build over all
+        its pictures, over its fractional ones, pictures, fractional
+        pictures)."""
+        sums, frac_sums, n_frac = {}, {}, 0
+        inter = full = 0
+        for i, a in enumerate(calls):
+            err = max_err(mc_frame(*a), mc_frame_wire_plain(*a))
+            if err:
+                fail(f"inter_mc on picture {i} of {stream} differs from "
+                     f"its plain version (max {err})")
+            lists = [(a[3], a[5])] + ([(a[4], a[6])] if a[4] is not None
+                                      else [])
+            fp = full_pel_census([(r.cpu().numpy(), v.cpu().numpy())
+                                  for r, v in lists], a[8], a[9])
+            bd = b4_bound(*a)
+            t = b4_in_turns(f"{stream} picture {i}", a, bd, quiet=True)
+            frac = fp["full_pel"] < 0.9 * fp["inter"]
+            n_frac += frac
+            inter += fp["inter"]
+            full += fp["full_pel"]
+            for k, v in t.items():
+                sums[k] = sums.get(k, 0.0) + v
+                if frac:
+                    frac_sums[k] = frac_sums.get(k, 0.0) + v
+            if each:
+                print(f"B4 {stream} picture {i} ({'PB'[len(lists) - 1]}, "
+                      f"WP {a[7]['mode']}, {a[8]}x{a[9]} MBs): full-pel "
+                      f"MBs {fp['full_pel']}/{fp['inter']}, fractional "
+                      f"(block, list) pairs {fp['frac_blocks']:.1%}, MBs "
+                      f"by groups {b4_census(a)}; bound {bd[0]:.4f} ms "
+                      f"({bd[1]}); CUDA events, mean of 20, in turns: "
+                      + ", ".join(f"{'this B4' if k == 'this' else k} "
+                                  f"{v:.4f} ms" for k, v in t.items())
+                      + f"  [{card}]")
+        print(f"B4 on the {len(calls)} P/B pictures of {stream}: full-pel "
+              f"MBs {full}/{inter}; sum of ms " + ", ".join(
+                  f"{'this B4' if k == 'this' else k} {v:.4f}"
+                  for k, v in sums.items())
+              + f"; over its {n_frac} fractional pictures " + ", ".join(
+                  f"{'this B4' if k == 'this' else k} {v:.4f}"
+                  for k, v in frac_sums.items()) + f"  [{card}]")
+        return sums, frac_sums, len(calls), n_frac
+
+    totals = {}
+    for stream in ["bench_ipb.264", "bench1080p_ipb.264"] + on_device:
+        if stream in real:
+            got = b4_pictures(stream, real[stream],
+                              each=stream.startswith("bench"))
+            group = stream if stream.startswith("bench") else "corpus"
+            tot = totals.setdefault(group, [{}, {}, 0, 0])
+            for j in (0, 1):
+                for k, v in got[j].items():
+                    tot[j][k] = tot[j].get(k, 0.0) + v
+            tot[2] += got[2]
+            tot[3] += got[3]
+    def ratios(sums):
+        return ", ".join(f"{'this B4' if k == 'this' else k} {v:.4f} ms "
+                         f"({v / sums['this']:.3f}x this)"
+                         for k, v in sums.items())
+
+    for group, (sums, frac_sums, pics, n_frac) in totals.items():
+        print(f"B4 sums on {group}: {pics} pictures {ratios(sums)}; "
+              f"{n_frac} fractional pictures "
+              f"{ratios(frac_sums) if n_frac else '-'}  [{card}]")
+    real.clear()
 
     # every step of bench_ipb.264 captured anew with a host
     # synchronisation inside the captured function an error

@@ -13,7 +13,9 @@ are its int32 PyTorch ports, with the JAX names, shapes and layouts;
 ``resolve_wp_blocks`` is a numpy copy of the host version.
 
 Kernel B4 (``csrc/inter_mc.cu``) computes what ``mc_frame_plain`` does,
-with the weighted-prediction tables resolved per block inside the kernel.
+with the weighted-prediction tables resolved per block inside the kernel:
+a warp per two macroblocks, a lane per 4x4 block, each warp on one
+path for all of its lanes (the note in the source says which and why).
 ``mc_frame`` is its wrapper: it takes the packed wire's fields as they
 arrive (int16 motion vectors, int8 slots and reference indices, the
 picture's WP tables) and returns uint8 predictions in MB-tile layout;
@@ -355,6 +357,9 @@ def mc_frame(refs_y, refs_cb, refs_cr, rs0, rs1, mv0, mv1, wp, mb_w, mb_h,
                                    mv1, wp, mb_w, mb_h, row0)
     if any(t.dtype != torch.uint8 for t in (refs_y, refs_cb, refs_cr)):
         raise ValueError("B4 reads uint8 reference stacks")
+    if any(t.data_ptr() % 4 for t in (refs_y, refs_cb, refs_cr)):
+        raise ValueError("B4's reference stacks must start on 4-byte "
+                         "boundaries (it reads their rows in words)")
     tabs = ((wp.get("expl"), (2, 32, 6), torch.int16),
             (wp.get("imp"), (256, 2), torch.int16),
             (wp.get("misc"), (4,), torch.int32))
