@@ -39,12 +39,17 @@ or a stored golden:
   pipeline must hand to it;
 - the sharded decode, ``parallel`` (GOP-sharded, band-pipelined,
   band-sharded single frame, the dry run), on one card through meshes
-  that repeat it;
+  that repeat it: each path eager and graphed (one step of
+  ``parallel.STEPS`` replayed, every slot stream inside its graph), the
+  one-card meshes required to take the graphed route, two graphed calls
+  on other inputs (the pictures reversed) each right while the first
+  call's planes are held;
 - the packed I/P/B path, ``device_ipb_packed.decode_annexb_device_packed``
   (densify, motion compensation, intra wavefront and deblock at F = 1),
   on ``bench_ipb.264`` and ``bench1080p_ipb.264``;
 - banded P recon, ``parallel.make_banded_p_recon_fn``, against motion
-  compensation on the whole plane, on meshes of one card and of several.
+  compensation on the whole plane, eager and graphed on a mesh of one
+  card (two graphed calls on two pictures), eager on a mesh of several.
 
 Each decode path runs both ways: eager (``graph=False``, every op
 enqueued from the host) and graphed (the default: one captured CUDA
@@ -59,7 +64,10 @@ equal its eager decode's wrapper counts, and the per-kernel JSON takes
 its launches from there.  It times the kernels, the
 end-to-end batched decode eager and graphed in turns, the device span of
 a batch of 16 deblocked pictures, the per-picture decode eager and
-graphed, the banded pipeline beside the unbanded wavefront, and the
+graphed, the sharded paths eager and graphed in turns (the band pipeline beside
+the unbanded wavefront with the syntax on the card, whole calls, the
+device part of ``decode_gop_sharded``, banded P recon per 1080p P
+picture, with host enqueue beside each device span), and the
 1080p I/P/B decode eager and graphed in turns with the native C++
 decode, with each path's device span per batch or picture (CUDA events
 around its device call), its host enqueue, its cudaLaunchKernel and
@@ -486,9 +494,12 @@ def device_kernels_in_profile(segments, names):
     20 ms apart.  For each label and each of `names`, the device ms of
     each device kernel whose name holds it and whose start falls in the
     label's range (give or take 10 ms), in launch order; kernels a CUDA
-    graph replays are traced like the others.  None when the profiler
-    records no device time.  It must be the process's first session: a
-    second one records no device events."""
+    graph replays are traced like the others.  Under the key "all", the
+    label's device activities of any name (kernels, copies, fills):
+    (count, ms from the first start to the last end, their ms summed, ms
+    when at least one runs).  None
+    when the profiler records no device time.  It must be the process's
+    first session: a second one records no device events."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -515,6 +526,20 @@ def device_kernels_in_profile(segments, names):
         out[label] = {n: [round((e.time_range.end - e.time_range.start)
                                 / 1e3, 4) for e in seg if n in e.name]
                       for n in names}
+        busy, cur = 0.0, None
+        for e in seg:      # the union of the kernels' intervals
+            a, b = e.time_range.start, e.time_range.end
+            if cur is None or a > cur[1]:
+                busy += 0 if cur is None else cur[1] - cur[0]
+                cur = [a, b]
+            else:
+                cur[1] = max(cur[1], b)
+        busy += 0 if cur is None else cur[1] - cur[0]
+        out[label]["all"] = (
+            len(seg), (max(e.time_range.end for e in seg)
+                       - seg[0].time_range.start) / 1e3 if seg else 0.0,
+            sum(e.time_range.end - e.time_range.start for e in seg) / 1e3,
+            busy / 1e3)
     return out
 
 
@@ -1369,58 +1394,111 @@ def main():
           f"{json.dumps(pipeline.STEPS.stats())}, their pool "
           f"{pool_mib(pipeline.STEPS):.1f} MiB  [{card}]")
 
-    # ---- phase 9: the sharded paths on one card -------------------------
+    # ---- phase 9: the sharded paths on one card, eager and graphed -----
+    # graph=False enqueues each path op by op on its mesh slots' streams;
+    # graphed (the default on a mesh of one card) replays one captured
+    # step per key with every slot stream inside (parallel.STEPS)
     phase("9 sharded")
     frames, gsps = frames_from_stream(gop_stream, n_threads=nthreads)
+    rev = frames[::-1]
+    rev_ref = refs[0][::-1]
 
     def check_planes(label, planes, ref):
         check_frames(label, [DecodedFrame(*p).crop(gsps) for p in planes],
                      ref, "native C++")
 
+    gop_mesh = parallel.make_mesh({"gop": 2}, ["cuda:0"] * 2)
+    run4 = {g: parallel.make_banded_gop_fn(
+        parallel.make_mesh({"band": 4}, ["cuda:0"] * 4), MB_W, MB_H, 16,
+        Fi=4, graph=g) for g in (False, True)}
+    run3 = {g: parallel.make_banded_frame_fn(
+        parallel.make_mesh({"band": 3}, ["cuda:0"] * 3), MB_W, MB_H,
+        graph=g) for g in (False, True)}
+    if not (run4[True].graphed and run3[True].graphed) \
+            or run4[False].graphed or run3[False].graphed:
+        fail("a mesh of one card did not take the route asked for")
+    n_eager = [0]    # eager sharded calls made here
+
+    def gop_sharded(graph, order=frames, ref=refs[0]):
+        e0 = parallel.STEPS.eager
+        planes = parallel.decode_gop_sharded(order, gop_mesh, graph=graph)
+        if parallel.STEPS.eager - e0 != (not graph):
+            fail("decode_gop_sharded over ['cuda:0'] * 2 did not take the "
+                 "route asked for")
+        n_eager[0] += not graph
+        check_planes(f"decode_gop_sharded over ['cuda:0'] * 2, "
+                     f"{('eager', 'graphed')[graph]}", list(zip(*planes)),
+                     ref)
+        return planes
+
+    def banded(graph, order=frames, ref=refs[0]):
+        """The 4-band pipeline and the 3-band frame; the pipeline's
+        planes (on the card)."""
+        label = ('eager', 'graphed')[graph]
+        planes = run4[graph](order, device_out=True)
+        check_planes(f"make_banded_gop_fn, 4 bands of 17 MB rows, Fi=4, "
+                     f"{label}", list(zip(*(p.cpu().numpy()
+                                            for p in planes))), ref)
+        check_planes(f"make_banded_frame_fn, 3 bands (23/23/22 MB rows), "
+                     f"{label}", [run3[graph](order[0])], ref[:1])
+        n_eager[0] += 2 * (not graph)
+        return planes
+
+    # graphed first: each step's warm-up and capture run the wrappers
     reset_counts()
+    g_gop = gop_sharded(True)
+    g_band = banded(True)
+    c = counts()
+    need("sharded paths, graphed, first run (warm-ups and captures)", c,
+         ("intra_wavefront", "intra_wavefront_banded"))
+    reset_counts()
+    e_gop = gop_sharded(False)
+    c_gop = counts()
+    reset_counts()
+    e_band = banded(False)
+    c_band = counts()
+    need("decode_gop_sharded, eager", c_gop, ("intra_wavefront",))
+    need("band pipeline and banded frame, eager", c_band,
+         ("intra_wavefront_banded",))
+    if not all(np.array_equal(a, b) for a, b in zip(g_gop, e_gop)) or \
+            not all(torch.equal(a, b) for a, b in zip(g_band, e_band)):
+        fail("a sharded path differs graphed and eager")
+    # a second graphed call on other inputs (the pictures reversed), the
+    # first call's planes held meanwhile: both right, no buffer shared
+    g_band2 = banded(True, rev, rev_ref)
+    gop_sharded(True, rev, rev_ref)
+    check_planes("make_banded_gop_fn graphed, first call's planes held "
+                 "through the second", list(zip(*(p.cpu().numpy()
+                                                  for p in g_band))),
+                 refs[0])
+    if {t.data_ptr() for t in g_band} & {t.data_ptr() for t in g_band2}:
+        fail("two graphed calls handed out one buffer")
+    print("sharded paths: graphed and eager bit-exact to each other and to "
+          "native C++, two graphed calls on other inputs each right")
+    census.append(("sharded GOP", lambda: gop_sharded(True), c_gop, {}))
+    census.append(("band pipeline", lambda: banded(True), c_band,
+                   {"intra_wavefront_banded": "intra_wavefront_banded"}))
     n_cards = torch.cuda.device_count()
-    meshes = [["cuda:0"] * 2] + ([[f"cuda:{i}" for i in range(n_cards)]]
-                                 if n_cards > 1 else [])
-    for devs in meshes:
+    if n_cards > 1:
+        # slots on several cards: the eager route, counted
+        devs = [f"cuda:{i}" for i in range(n_cards)]
+        e0 = parallel.STEPS.eager
         planes = parallel.decode_gop_sharded(
             frames, parallel.make_mesh({"gop": len(devs)}, devs))
         check_planes(f"decode_gop_sharded over {devs}",
                      list(zip(*planes)), refs[0])
-    run4 = parallel.make_banded_gop_fn(
-        parallel.make_mesh({"band": 4}, ["cuda:0"] * 4), MB_W, MB_H, 16,
-        Fi=4)
-    check_planes("make_banded_gop_fn, 4 bands of 17 MB rows, Fi=4",
-                 list(zip(*run4(frames))), refs[0])
-    run3 = parallel.make_banded_frame_fn(
-        parallel.make_mesh({"band": 3}, ["cuda:0"] * 3), MB_W, MB_H)
-    check_planes("make_banded_frame_fn, 3 bands (23/23/22 MB rows)",
-                 [run3(frames[0])], refs[0][:1])
+        if parallel.STEPS.eager != e0 + 1:
+            fail("a mesh over several cards took no counted eager route")
+        n_eager[0] += 1
     parallel.dryrun_multichip(4, ["cuda:0"] * 4, stream=gop_stream,
                               n_threads=nthreads)
-    # the band steps run eager: their wrappers count every launch
-    c = counts()
-    need("sharded paths", c, ("intra_wavefront", "intra_wavefront_banded"))
-    kernels["intra_wavefront_banded"]["launches"] = \
-        c["intra_wavefront_banded"]
+    if parallel.STEPS.eager != n_eager[0]:
+        fail(f"parallel.STEPS counted {parallel.STEPS.eager} eager calls, "
+             f"{n_eager[0]} were made")
 
-    # device span of stage A + wavefront over the 16 pictures, syntax
-    # already on the card: banded pipeline (4 bands on one card) beside
-    # the unbanded B2
-    syn = syntax_tensors(stack_frames(frames), dev)
-    band_syn = run4.upload(frames)
-    tabs = tables_for(dev)
-
-    def unbanded():
-        return recon_syntax(syn, tabs, MB_W, MB_H)
-
-    def banded():
-        return run4.reconstruct(band_syn, device_out=True)
-
-    if not all(torch.equal(a, b) for a, b in zip(banded(), unbanded())):
-        fail("banded pipeline differs from the unbanded wavefront")
-
-    def span_ms(fn, reps=3):
-        """Mean (device span by CUDA events, host time to enqueue) ms."""
+    def span_host_ms(fn, reps=3):
+        """Mean (device span by CUDA events, host time to return) ms of
+        fn(), after one warm call."""
         fn()
         torch.cuda.synchronize()
         tot = host = 0.0
@@ -1436,13 +1514,62 @@ def main():
             tot += a.elapsed_time(b)
         return tot / reps, host * 1e3 / reps
 
-    times = [span_ms(f) for f in (unbanded, banded, banded, unbanded)]
-    print(f"device span (host enqueue), 16 pictures of bench1080p_gop16, "
-          f"stage A + wavefront, CUDA events, mean of 3: unbanded B2 "
-          f"{times[0][0]:.3f} ({times[0][1]:.3f}) / {times[3][0]:.3f} "
-          f"({times[3][1]:.3f}) ms, banded pipeline 4 bands Fi=4 "
-          f"{times[1][0]:.3f} ({times[1][1]:.3f}) / {times[2][0]:.3f} "
-          f"({times[2][1]:.3f}) ms  [{card}]")
+    def spans_in_turns(label, fns):
+        """fns: {name: fn}; each timed in the order a, b, ..., ..., b, a;
+        printed as device span (host enqueue) ms."""
+        order = list(fns) + list(fns)[::-1]
+        t = {}
+        for k in order:
+            t.setdefault(k, []).append(span_host_ms(fns[k]))
+        print(f"{label}, device span (host ms to return), CUDA events, "
+              f"mean of 3, in turns: " + ", ".join(
+                  f"{k} " + " / ".join(f"{d:.3f} ({h:.3f})" for d, h in v)
+                  for k, v in t.items()) + f" ms  [{card}]")
+        return t
+
+    # device span of stage A + wavefront over the 16 pictures, syntax
+    # already on the card: unbanded B2, the 4-band pipeline eager (the
+    # step's function op by op) and graphed (its replay and the clones)
+    syn = syntax_tensors(stack_frames(frames), dev)
+    tabs = tables_for(dev)
+    band_step = run4[True].step_args(frames)
+    band_fn = band_step[1]()
+    band_syn = [x.to(dev) for x in band_step[2]]
+    with parallel.STEPS.hold(*band_step, run4[True].device) as step:
+        step.load(*band_step[2])
+        if not all(torch.equal(a, b) for a, b in zip(step(),
+                                                     band_fn(*band_syn))):
+            fail("the band pipeline's replay differs from its eager run")
+        spans_in_turns("16 pictures of bench1080p_gop16, stage A + wavefront, "
+                 "syntax on the card", {
+                     "unbanded B2": lambda: recon_syntax(syn, tabs, MB_W,
+                                                         MB_H),
+                     "4-band pipeline eager": lambda: band_fn(*band_syn),
+                     "4-band pipeline graphed": step})
+    # whole calls, FrameSyntax in, planes on the card out (syntax built on
+    # the host and copied over; eager op by op, graphed load and replay)
+    spans_in_turns("16 pictures of bench1080p_gop16, make_banded_gop_fn call "
+             "(4 bands, Fi=4, device output)",
+             {"eager": lambda: run4[False](frames, device_out=True),
+              "graphed": lambda: run4[True](frames, device_out=True)})
+    # decode_gop_sharded's device part (syntax copies, stage A and B2 on
+    # both slots; the host copy of the planes after it is left out)
+    spans = {}
+    for graph in (False, True, True, False):
+        with spans_around(parallel.gop, ("run_eager", "run_step")[graph]
+                          ) as sp:
+            gop_sharded(graph)
+        spans.setdefault(graph, []).append(span_summary(sp)[1:])
+    print("16 pictures of bench1080p_gop16, decode_gop_sharded over "
+          "['cuda:0'] * 2, device part (syntax copies in, stage A + B2 "
+          "on both slots), device span (host ms to return), in turns: "
+          + ", ".join(f"{('eager', 'graphed')[g]} " + " / ".join(
+              f"{d:.3f} ({h:.3f})" for d, h in v)
+              for g, v in spans.items()) + f" ms  [{card}]")
+    print(f"captured steps of the sharded paths: "
+          f"{json.dumps(parallel.STEPS.stats())}, their pool "
+          f"{pool_mib(parallel.STEPS):.1f} MiB; card memory reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB  [{card}]")
 
     # ---- phase 10: the packed I/P/B path, eager and graphed ------------
     phase("10 I/P/B")
@@ -1756,53 +1883,132 @@ def main():
           f"[{card}]")
 
     # ---- phase 11: banded P recon, equal to B4 on the whole plane -------
+    # eager and graphed in turns; two graphed calls on two P pictures
     phase("11 banded P recon")
-    prng = np.random.default_rng(5)
-    n4 = 16 * n
-    pmv = np.stack([prng.integers(-4 * 80, 4 * 80 + 1, n4),
-                    prng.integers(-4 * 48, 4 * 48 + 1, n4)], 1)
-    prs = np.where(prng.random(n4) < 0.05, -1, 0)
-    yres = prng.integers(-30, 31, (n, 16, 16))
-    cres = prng.integers(-30, 31, (n, 2, 8, 8))
     ref = [p[0] for p in stacks]
-    py, pc = mc_frame(*(p[None] for p in ref),
-                      torch.from_numpy(prs.astype(np.int8)).to(dev), None,
-                      torch.from_numpy(pmv.astype(np.int16)).to(dev), None,
-                      {"mode": 0}, MB_W, MB_H)
-    ty = (py.int() + torch.from_numpy(yres).to(dev)).clamp(0, 255)
-    tc = (pc.int() + torch.from_numpy(cres).to(dev)).clamp(0, 255)
-    want = (ty.view(MB_H, MB_W, 16, 16).permute(0, 2, 1, 3)
-            .reshape(16 * MB_H, 16 * MB_W),
-            *(tc[:, p].reshape(MB_H, MB_W, 8, 8).permute(0, 2, 1, 3)
-              .reshape(8 * MB_H, 8 * MB_W) for p in (0, 1)))
+    host_ref = [p.cpu().numpy() for p in ref]
+
+    def p_case(seed):
+        """A random 1080p P picture over the first reference (host
+        arguments of a banded P recon call) and its planes from B4 on the
+        whole plane and the residual add."""
+        prng = np.random.default_rng(seed)
+        n4 = 16 * n
+        pmv = np.stack([prng.integers(-4 * 80, 4 * 80 + 1, n4),
+                        prng.integers(-4 * 48, 4 * 48 + 1, n4)], 1)
+        prs = np.where(prng.random(n4) < 0.05, -1, 0)
+        yres = prng.integers(-30, 31, (n, 16, 16))
+        cres = prng.integers(-30, 31, (n, 2, 8, 8))
+        py, pc = mc_frame(*(p[None] for p in ref),
+                          torch.from_numpy(prs.astype(np.int8)).to(dev),
+                          None,
+                          torch.from_numpy(pmv.astype(np.int16)).to(dev),
+                          None, {"mode": 0}, MB_W, MB_H)
+        ty = (py.int() + torch.from_numpy(yres).to(dev)).clamp(0, 255)
+        tc = (pc.int() + torch.from_numpy(cres).to(dev)).clamp(0, 255)
+        want = (ty.view(MB_H, MB_W, 16, 16).permute(0, 2, 1, 3)
+                .reshape(16 * MB_H, 16 * MB_W),
+                *(tc[:, p].reshape(MB_H, MB_W, 8, 8).permute(0, 2, 1, 3)
+                  .reshape(8 * MB_H, 8 * MB_W) for p in (0, 1)))
+        return (*host_ref, pmv, prs, yres, cres), [w.to(torch.uint8)
+                                                   for w in want]
+
+    p_cases = [p_case(5), p_case(6)]
+    p_mesh = parallel.make_mesh({"band": 4}, ["cuda:0"] * 4)
+    prun = {g: parallel.make_banded_p_recon_fn(p_mesh, MB_W, MB_H, apron=64,
+                                               graph=g) for g in (False, True)}
+    if not prun[True].graphed or prun[False].graphed:
+        fail("banded P recon on a mesh of one card did not take the route "
+             "asked for")
+
+    def p_recon(graph, case=0):
+        args, want = p_cases[case]
+        got = prun[graph](*args, device_out=True)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"banded P recon over ['cuda:0'] * 4, "
+                 f"{('eager', 'graphed')[graph]}, picture {case}, differs "
+                 f"from B4 on the whole plane")
+        return got
+
     reset_counts()
-    for devs in [["cuda:0"] * 4] + ([[f"cuda:{i}" for i in range(
-            min(4, n_cards))]] if n_cards > 1 else []):
+    p_recon(True)
+    need("banded P recon, graphed, first run (warm-up and capture)",
+         counts(), ("inter_mc",))
+    reset_counts()
+    e_p = p_recon(False)
+    c_p = counts()
+    need("banded P recon, eager", c_p, ("inter_mc",))
+    g_p = p_recon(True)
+    g_p2 = p_recon(True, 1)
+    if not all(torch.equal(a, b) for a, b in zip(g_p, e_p)) or \
+            not all(torch.equal(g, w) for g, w in zip(g_p, p_cases[0][1])):
+        fail("banded P recon: the first graphed planes changed under the "
+             "second replay, or differ from eager")
+    if {t.data_ptr() for t in g_p} & {t.data_ptr() for t in g_p2}:
+        fail("banded P recon: two graphed calls handed out one buffer")
+    print(f"banded P recon over ['cuda:0'] * 4 ({MB_H // 4} MB rows a band,"
+          f" apron 64): eager and graphed equal to B4 on the whole plane, "
+          f"two graphed calls on two pictures each right")
+    census.append(("banded P recon", lambda: p_recon(True), c_p, {}))
+    if n_cards > 1:
+        devs = [f"cuda:{i}" for i in range(min(4, n_cards))]
         run = parallel.make_banded_p_recon_fn(
             parallel.make_mesh({"band": len(devs)}, devs), MB_W, MB_H,
             apron=64)
-        got = run(*(p.cpu().numpy() for p in ref), pmv, prs, yres, cres,
-                  device_out=True)
-        if not all(torch.equal(g.to(dev), w.to(torch.uint8))
-                   for g, w in zip(got, want)):
-            fail(f"banded P recon over {devs} differs from B4 on the whole "
-                 f"plane")
-        print(f"banded P recon over {devs} ({MB_H // len(devs)} MB rows a "
-              f"band, apron 64): equal to B4 on the whole plane")
-    need("banded P recon", counts(), ("inter_mc",))
+        got = run(*p_cases[0][0], device_out=True)
+        if run.graphed or not all(torch.equal(g.to(dev), w) for g, w in
+                                  zip(got, p_cases[0][1])):
+            fail(f"banded P recon over {devs} took the graphed route or "
+                 f"differs from B4 on the whole plane")
+        print(f"banded P recon over {devs} (eager): equal to B4 on the "
+              f"whole plane")
+    spans_in_turns("a 1080p P picture, banded P recon call (4 bands of 17 MB "
+             "rows, apron 64, host arrays in, device output)",
+             {"eager": lambda: p_recon(False),
+              "graphed": lambda: p_recon(True)})
+    # the device work alone, inputs on the card: the step's function op
+    # by op (apron hops, B4, residual add, assembly) eager, its replay and
+    # the clones graphed
+    p_step = prun[True].step_args(*p_cases[0][0])
+    p_fn = p_step[1]()
+    p_in = [x.to(dev) for x in p_step[2]]
+    with parallel.STEPS.hold(*p_step, p_mesh.one_device("band")) as step:
+        step.load(*p_step[2])
+        if not all(torch.equal(g, w) for g, w in zip(step(), e_p)) or \
+                not all(torch.equal(g, w) for g, w in zip(p_fn(*p_in), e_p)):
+            fail("banded P recon: the step's replay or its function run "
+                 "op by op differs from the eager call")
+        spans = {}
+        for graph in (False, True, True, False):
+            fn = step if graph else lambda: p_fn(*p_in)
+            spans.setdefault(graph, []).append(span_host_ms(fn))
+    print("a 1080p P picture, banded P recon device work (inputs on the "
+          "card), device span (host ms to return), mean of 3, in turns: "
+          + ", ".join(f"{('eager', 'graphed')[g]} " + " / ".join(
+              f"{d:.3f} ({h:.3f})" for d, h in v)
+              for g, v in spans.items()) + f" ms  [{card}]")
+    print(f"captured steps of the sharded paths and banded P recon: "
+          f"{json.dumps(parallel.STEPS.stats())}, their pool "
+          f"{pool_mib(parallel.STEPS):.1f} MiB; card memory reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB  [{card}]")
 
     # ---- phase 12: the census, the run's one device trace --------------
     # the per-call kernels of phase 3, then each graphed path's streams
     # once more through steps made before (one untraced run first): the
     # device kernels of each path must equal its eager wrapper counts
     phase("12 census")
-    caches = (gop_pipeline.STEPS, pipeline.STEPS, device_ipb_packed.STEPS)
+    caches = (gop_pipeline.STEPS, pipeline.STEPS, device_ipb_packed.STEPS,
+              parallel.STEPS)
     for _, fn, _, _ in census:
         fn()
     made = [x.made for x in caches]
+    def band_replay():
+        with parallel.STEPS.hold(*band_step, run4[True].device) as st:
+            st()
+
     trace = device_kernels_in_profile(
-        [("per call", per_call)] + [(p, fn) for p, fn, _, _ in census],
-        names)
+        [("per call", per_call)] + [(p, fn) for p, fn, _, _ in census]
+        + [("band pipeline replay", band_replay)], names)
     if trace is None:
         fail("the profiler recorded no device time: the graphed paths' "
              "launches are not measured")
@@ -1818,18 +2024,35 @@ def main():
     if [len(n_prof[k]) for k in names] != [
             2, len(b2_cases), len(b3_cases), len(b4_prof)]:
         fail("a B1, B2, B3 or B4 call launched other than one kernel")
-    kname = dict(zip(("densify", "intra_wavefront", "deblock", "inter_mc"),
-                     names))
+    # B2 and B2b are one device kernel: its count is theirs summed
+    counters = dict(zip(names, (("densify",),
+                                ("intra_wavefront", "intra_wavefront_banded"),
+                                ("deblock",), ("inter_mc",))))
     for path, _, eager, report in census:
-        got = {k: len(trace[path][n]) for k, n in kname.items()}
-        expect = {k: eager[k] for k in kname}
+        got = {n: len(trace[path][n]) for n in names}
+        expect = {n: sum(eager[k] for k in ks) for n, ks in counters.items()}
         print(f"device kernels of the {path}, graphed, in the census trace: "
               f"{got}; eager wrapper counts {expect}  [{card}]")
         if got != expect:
             fail(f"{path}: the graphed decode launched other kernels than "
                  f"the eager one")
         for line, k in report.items():
-            kernels[line]["launches"] = got[k]
+            n = next(n for n, ks in counters.items() if k in ks)
+            if any(eager[o] for o in counters[n] if o != k):
+                fail(f"{path}: the census cannot tell {k} from the other "
+                     f"counters of {n}")
+            kernels[line]["launches"] = got[n]
+    n_act, span, summed, busy = trace["band pipeline replay"]["all"]
+    print(f"one replay of the 4-band pipeline's step (16 pictures, Fi=4) in "
+          f"the census trace: {n_act} device activities, {span:.3f} ms from "
+          f"the first start to the last end, {summed:.3f} ms summed, "
+          f"{busy:.3f} ms with at least one running: {summed / busy:.2f} "
+          f"running at once on average, the card idle {1 - busy / span:.1%}"
+          f" of the span; B2b "
+          f"{sum(trace['band pipeline replay']['intra_rows_kernel']):.3f} "
+          f"ms summed over "
+          f"{len(trace['band pipeline replay']['intra_rows_kernel'])} "
+          f"launches  [{card}]")
     for f in host_side:
         f()
 

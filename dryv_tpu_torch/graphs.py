@@ -26,6 +26,24 @@ buffers, and a call runs the function eagerly on them and copies the
 results into the static outputs, so that the tests reach the key
 choice, the input copies and the output clones without a card.
 
+A step's function may fork other streams of its device, as the sharded
+paths do (``parallel.mesh.STEPS``: one stream per mesh slot).  Each
+slot stream first waits on the current stream (``fork_streams``), which
+inside ``torch.cuda.graph`` is the capture stream, so its work joins the
+capture; halo and apron copies between slots are ordered by events
+recorded on one slot stream and waited on by another, which become the
+graph's edges; and before the function returns, the current stream waits
+on every slot stream (``join_streams``), so no stream is left outside
+the capture when it ends (an unjoined stream fails the capture with
+``cudaErrorStreamCaptureUnjoined``).  The warm-up runs the same function
+on the side stream, so it makes the same forks and joins from there.
+Blocks freed during the capture on the stream that allocated them are
+reused by later allocations on that stream inside the graph; a block
+read on another stream is marked with ``record_stream`` first, and the
+allocator keeps it until the capture ends.  Such a step needs all its
+slots on one device: its graph captures one device's work, and draws on
+that device's pool.
+
 The kernels' launch counters move only where a wrapper launches its
 kernel: in eager runs, a step's warm-up, and the capture, which records
 the launch into the graph.  A replay runs the recorded kernels on the

@@ -2,7 +2,10 @@
 a mesh of torch devices driven by one process, frame-parallel GOP decode
 over its "gop" axis, band-parallel intra reconstruction with halo
 exchange (kernel B2b) over its "band" axis, and banded P recon
-(reference-row aprons between bands, kernel B4)."""
+(reference-row aprons between bands, kernel B4).  Each path's device
+work replays as one captured CUDA graph per static key (``STEPS``, the
+counterpart of the JAX package's ``jax.jit(shard_map(...))``) when its
+slots share one device; ``graph=False`` enqueues it op by op."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,9 +13,10 @@ import numpy as np
 from .bands import (make_banded_frame_fn, make_banded_gop_fn,
                     make_banded_p_recon_fn, make_banded_wavefront_fn)
 from .gop import decode_gop_sharded
-from .mesh import Mesh, make_mesh
+from .mesh import STEPS, Mesh, make_mesh
 
-__all__ = ["Mesh", "make_mesh", "decode_gop_sharded", "make_banded_frame_fn",
+__all__ = ["Mesh", "make_mesh", "STEPS", "decode_gop_sharded",
+           "make_banded_frame_fn",
            "make_banded_wavefront_fn", "make_banded_gop_fn",
            "make_banded_p_recon_fn", "dryrun_multichip"]
 
@@ -44,7 +48,8 @@ def dryrun_multichip(n_devices: int, devices=None, stream: bytes = None,
     ``_tiny_stream``) decode frame-parallel over the "gop" axis, band-
     sharded over the "band" axis, and over the 2-D mesh, and every frame
     of each must equal ``dryv_tpu.native.full.decode_annexb_native``
-    (the original checks shapes only).  `devices` as for ``make_mesh``,
+    (the original checks shapes only).  The paths take their default,
+    graphed routes.  `devices` as for ``make_mesh``,
     which may repeat one device.  Raises on any difference; returns
     {"gop", "band", "frames"}."""
     from ..decoder import DecodedFrame

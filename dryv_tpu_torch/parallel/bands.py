@@ -7,10 +7,12 @@ one launch of kernel B2b and sends its bottom luma row and bottom chroma
 rows to band b + 1, whose first MB row reads them as its above,
 above-right and corner aprons at step t + 1.  Each band's slot runs on a
 CUDA stream of its own; the halo copy is ordered by a CUDA event that the
-next band's stream waits on, so on one card the bands overlap and on
-several the copy goes peer to peer.  Intra without the in-loop filter:
-filtering across a band boundary needs a back-edge fixup, as the JAX
-version says.
+next band's stream waits on before its B2b launch (its stage A goes
+ahead), so on one card the bands overlap and on several the copy goes
+peer to peer.  On one card the whole pipeline, streams, events and
+copies included, replays as one captured CUDA graph per key.  Intra
+without the in-loop filter: filtering across a band boundary needs a
+back-edge fixup, as the JAX version says.
 
 ``make_banded_p_recon_fn`` is the banded P recon: each band receives an
 apron of reference rows from its neighbours and runs motion compensation
@@ -24,9 +26,12 @@ import numpy as np
 import torch
 
 from ..kernels.inter import mc_frame
-from ..pipeline import recon_syntax, tables_for
+from ..kernels.transform import stage_a_residuals
+from ..kernels.wavefront import intra_recon, recon_inputs
+from ..pipeline import tables_for
 from ..syntax import stack_frames, syntax_tensors
-from .mesh import fork_streams, join_streams, on_stream, slot_streams
+from .mesh import (fork_streams, join_streams, on_stream, run_eager,
+                   run_step, slot_streams)
 
 
 @lru_cache(maxsize=None)
@@ -59,7 +64,7 @@ def band_schedule(mb_w: int, mb_h: int, n_bands: int):
 
 
 def make_banded_gop_fn(mesh, mb_w: int, mb_h: int, F: int, Fi: int = 0,
-                       axis: str = "band"):
+                       axis: str = "band", graph: bool = True):
     """Band-pipelined whole-GOP reconstruction with kernel B2b.
 
     Counterpart of ``make_banded_gop_pallas_fn``
@@ -75,16 +80,25 @@ def make_banded_gop_fn(mesh, mb_w: int, mb_h: int, F: int, Fi: int = 0,
     Returns a ``BandedGop``: run(fs_list, device_out=False) -> (y [F,
     16*mb_h, 16*mb_w], cb, cr) uint8 planes, cropped to the picture's MB
     rows: numpy, or with device_out tensors on the first band's device,
-    ordered after the run on that device's current stream."""
-    return BandedGop(mesh, mb_w, mb_h, F, Fi, axis)
+    ordered after the run on that device's current stream.  With `graph`
+    (the default) and every slot on one device, a call copies each
+    band's syntax into the static inputs of its key's step (slot
+    devices, axis, mb_w, mb_h, F, Fi, the syntax tensors' names) and
+    replays the whole pipeline, every band's stream with its halo copies,
+    as one CUDA graph (``mesh.STEPS``), the counterpart of the JAX
+    version's ``jax.jit(shard_map(...))``; otherwise the same function
+    is enqueued op by op on the inputs copied to the bands' devices,
+    counted in ``STEPS.eager``.  ``run.graphed`` says which."""
+    return BandedGop(mesh, mb_w, mb_h, F, Fi, axis, graph)
 
 
 class BandedGop:
-    """``make_banded_gop_fn``'s run: ``upload`` puts each band's syntax
-    on its slot's device, ``reconstruct`` runs the pipeline on it, and a
-    call does both."""
+    """``make_banded_gop_fn``'s run.  ``step_args`` gives a call's key,
+    the step's maker and its host inputs; a call replays the step, or
+    runs the maker's function op by op on the inputs copied to the
+    bands' devices."""
 
-    def __init__(self, mesh, mb_w, mb_h, F, Fi, axis):
+    def __init__(self, mesh, mb_w, mb_h, F, Fi, axis, graph=True):
         self.devs = mesh.axis_devices(axis)
         B = self.B = len(self.devs)
         self.rows = band_schedule(mb_w, mb_h, B)[0]
@@ -93,15 +107,25 @@ class BandedGop:
         if F % Fi:
             raise ValueError(f"F={F} is not a multiple of Fi={Fi}")
         self.mb_w, self.mb_h, self.F, self.Fi = mb_w, mb_h, F, Fi
+        self.axis = axis
         self.tabs = [tables_for(d) for d in self.devs]
-        self.streams = slot_streams(self.devs)
+        self.device = mesh.one_device(axis)
+        self.graphed = graph and self.device is not None
 
     def __call__(self, fs_list, device_out=False):
-        return self.reconstruct(self.upload(fs_list), device_out)
+        key, make, xs = self.step_args(fs_list)
+        if self.graphed:
+            planes = run_step(key, make, xs, self.device)
+        else:
+            planes = run_eager(make(), xs, self.devs)
+        return planes if device_out else tuple(p.cpu().numpy()
+                                               for p in planes)
 
-    def upload(self, fs_list):
-        """FrameSyntax list -> per band, its syntax tensors on its device
-        (MB rows padded with zero syntax to B * rows)."""
+    def step_args(self, fs_list):
+        """(key, maker, inputs) of this call's step: the inputs are each
+        band's syntax tensors on the host, MB rows padded with zero
+        syntax to B * rows, in the key's name order; the maker's function
+        takes them on the bands' devices and runs ``reconstruct``."""
         F, B, n_local = self.F, self.B, self.rows * self.mb_w
         if len(fs_list) != F:
             raise ValueError(f"expected {F} pictures, got {len(fs_list)}")
@@ -111,19 +135,27 @@ class BandedGop:
                 stacked[k] = np.concatenate(
                     [a, np.zeros((F, B * n_local - a.shape[1])
                                  + a.shape[2:], a.dtype)], axis=1)
-        fork_streams(self.devs, self.streams)
-        syn = []
-        for b, (dev, st) in enumerate(zip(self.devs, self.streams)):
-            with on_stream(st):
-                syn.append(syntax_tensors(
-                    {k: v[:, b * n_local:(b + 1) * n_local]
-                     for k, v in stacked.items()}, dev))
-        join_streams(self.devs, self.streams)
-        return syn
+        s = syntax_tensors(stacked, "cpu")
+        names = tuple(sorted(s))
+        k = len(names)
+        xs = [s[name][:, b * n_local:(b + 1) * n_local]
+              for b in range(B) for name in names]
 
-    def reconstruct(self, syn, device_out=False):
-        """The pipeline over ``upload``'s syntax; returns the planes."""
-        devs, streams, B, Fi = self.devs, self.streams, self.B, self.Fi
+        def make():
+            streams = slot_streams(self.devs)
+            return lambda *xs: self.reconstruct(
+                [dict(zip(names, xs[b * k:(b + 1) * k]))
+                 for b in range(B)], streams)
+
+        return ((tuple(self.devs), self.axis, self.mb_w, self.mb_h, F,
+                 self.Fi, names), make, xs)
+
+    def reconstruct(self, syn, streams):
+        """The pipeline over each band's syntax tensors on its device, on
+        the slot `streams`, forked from the current stream and joined to
+        it again; returns the cropped planes on the first band's
+        device."""
+        devs, B, Fi = self.devs, self.B, self.Fi
         mb_w, rows, G = self.mb_w, self.rows, self.F // Fi
         fork_streams(devs, streams)
         with on_stream(streams[0]):
@@ -139,12 +171,16 @@ class BandedGop:
             for b in range(max(0, t - G + 1), min(B, t + 1)):
                 g = t - b
                 with on_stream(streams[b]):
-                    if ready[b] is not None:
-                        streams[b].wait_event(ready[b])
                     sg = {k: v[g * Fi:(g + 1) * Fi]
                           for k, v in syn[b].items()}
-                    y, cb, cr = recon_syntax(sg, self.tabs[b], mb_w, rows,
-                                             halo=halo[b])
+                    ins = recon_inputs(sg, *stage_a_residuals(
+                        sg, self.tabs[b]))
+                    # only B2b reads the halo: stage A runs before the
+                    # wait, beside the band above's work
+                    if ready[b] is not None:
+                        streams[b].wait_event(ready[b])
+                    y, cb, cr = intra_recon(*ins, self.tabs[b], mb_w, rows,
+                                            halo=halo[b])
                     planes[b].append((y, cb, cr))
                     if b + 1 < B:
                         sent[b + 1] = _send(y, cb, cr, devs[b + 1],
@@ -162,8 +198,8 @@ class BandedGop:
                             torch.cuda.current_stream(devs[b]))
                 parts.append(torch.cat([pl[p] for pl in planes[b]])
                              .to(devs[0]))
-            full = torch.cat(parts, 1)[:, :(16 if p == 0 else 8) * self.mb_h]
-            out.append(full if device_out else full.cpu().numpy())
+            out.append(torch.cat(parts, 1)[:, :(16 if p == 0 else 8)
+                                           * self.mb_h])
         return tuple(out)
 
 
@@ -190,7 +226,8 @@ def _send(y, cb, cr, to, src_stream, dst_stream):
     return (hy, hc), ev
 
 
-def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band"):
+def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band",
+                         graph: bool = True):
     """Full-frame band-sharded reconstruction of one picture.
 
     Counterpart of ``make_banded_frame_fn`` (``dryv_tpu/parallel/
@@ -198,12 +235,15 @@ def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band"):
     (y, cb, cr).  The JAX version exchanges frontier rows after every
     diagonal; here it is ``make_banded_gop_fn`` with F = Fi = 1, which
     gives the same planes from one halo per band boundary.  On a 2-D
-    mesh it uses the band axis, as the original does."""
-    run_gop = make_banded_gop_fn(mesh, mb_w, mb_h, 1, Fi=1, axis=axis)
+    mesh it uses the band axis, as the original does.  `graph` and
+    ``run.graphed`` are ``make_banded_gop_fn``'s."""
+    run_gop = make_banded_gop_fn(mesh, mb_w, mb_h, 1, Fi=1, axis=axis,
+                                 graph=graph)
 
     def run(fs, device_out=False):
         return tuple(p[0] for p in run_gop([fs], device_out))
 
+    run.graphed = run_gop.graphed
     return run
 
 
@@ -256,7 +296,7 @@ def _extend(planes, a, total, devs, streams):
 
 
 def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
-                           axis: str = "band"):
+                           axis: str = "band", graph: bool = True):
     """Banded P recon: returns run(ref_y, ref_cb, ref_cr, mv [n4,2], rs
     [n4], y_resid [n,16,16], c_resid [n,2,8,8], device_out=False) ->
     (y, cb, cr) uint8 planes for a single-reference P picture with no
@@ -271,17 +311,27 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
     own slot's stream.  The vertical reach of the vectors (integer rows
     plus the 6-tap margin) must stay within the apron: run() asserts it,
     as the JAX version does.  Planes come back numpy, or with device_out
-    tensors on the first band's device."""
+    tensors on the first band's device.  With `graph` (the default) and
+    every slot on one device, each band's reference rows, vectors, slots
+    and residuals are copied into the static inputs of the key's step
+    (slot devices, axis, mb_w, mb_h, apron) and the apron hops, B4, the
+    residual add and the assembly replay as one CUDA graph
+    (``mesh.STEPS``); otherwise the same function is enqueued op by op on
+    the inputs copied to the bands' devices, counted in ``STEPS.eager``.
+    ``run.graphed`` says which; ``run.step_args(*args)`` gives a call's
+    key, the step's maker and its host inputs."""
     devs = mesh.axis_devices(axis)
     B = len(devs)
     if mb_h % B:
         raise ValueError("bands must split MB rows evenly")
     hb = mb_h // B
     A = apron
-    streams = slot_streams(devs)
+    one = mesh.one_device(axis)
 
-    def run(ref_y, ref_cb, ref_cr, mv, rs, y_resid, c_resid,
-            device_out=False):
+    def step_args(ref_y, ref_cb, ref_cr, mv, rs, y_resid, c_resid):
+        """(key, maker, inputs) of a call's step, after the reach check:
+        the inputs are each band's reference rows, vectors, slots and
+        residuals on the host."""
         mv = np.asarray(mv)
         reach = int(np.max(np.abs(mv[:, 1]))) // 4 + 9
         assert reach <= A, f"vertical MV reach {reach} exceeds apron {A}"
@@ -292,20 +342,47 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
         slot = np.where(np.asarray(rs) >= 0, 0, -1).astype(np.int8)
         yr = np.asarray(y_resid, np.int32)
         cr_ = np.asarray(c_resid, np.int32)
+        xs = []
+        for b in range(B):
+            xs += [torch.from_numpy(p[b * len(p) // B:(b + 1) * len(p) // B])
+                   for p in refs]
+            xs += [torch.from_numpy(a[b * k:(b + 1) * k])
+                   for a, k in ((mv16, n4l), (slot, n4l), (yr, nl),
+                                (cr_, nl))]
+        return ((tuple(devs), axis, mb_w, mb_h, A),
+                lambda: _p_recon_fn(devs, mb_w, hb, A), xs)
+
+    def run(*args, device_out=False):
+        key, make, xs = step_args(*args)
+        if run.graphed:
+            planes = run_step(key, make, xs, one)
+        else:
+            planes = run_eager(make(), xs, devs)
+        return planes if device_out else tuple(p.cpu().numpy()
+                                               for p in planes)
+
+    run.step_args = step_args
+    run.graphed = graph and one is not None
+    return run
+
+
+def _p_recon_fn(devs, mb_w, hb, A):
+    """The step's function, captured or run op by op: fn(*each band's
+    ref_y, ref_cb, ref_cr rows, mv, slots, y_resid, c_resid on its device)
+    -> (y, cb, cr) on devs[0].  The slot streams fork from the current
+    stream; the apron hops, B4 and the residual add run on each band's
+    stream, and the planes are assembled on devs[0] after the join."""
+    streams = slot_streams(devs)
+    B = len(devs)
+
+    def fn(*xs):
         fork_streams(devs, streams)
-        band = []
-        for b, (dev, st) in enumerate(zip(devs, streams)):
-            with on_stream(st):
-                ps = [torch.from_numpy(p[b * len(p) // B:(b + 1) * len(p)
-                                         // B]).to(dev) for p in refs]
-                band.append(ps + [torch.from_numpy(
-                    a[b * k:(b + 1) * k]).to(dev) for a, k in (
-                        (mv16, n4l), (slot, n4l), (yr, nl), (cr_, nl))])
-        ext = [_extend([bd[p] for bd in band], a, len(refs[p]), devs,
-                       streams) for p, a in ((0, A), (1, A // 2),
-                                             (2, A // 2))]
+        band = [xs[7 * b:7 * (b + 1)] for b in range(B)]
+        ext = [_extend([bd[p] for bd in band], a,
+                       sum(bd[p].shape[0] for bd in band), devs, streams)
+               for p, a in ((0, A), (1, A // 2), (2, A // 2))]
         parts = []
-        for b, (dev, st) in enumerate(zip(devs, streams)):
+        for b, st in enumerate(streams):
             with on_stream(st):
                 mvb, sb, yrb, crb = band[b][3:]
                 py, pc = mc_frame(ext[0][b][None], ext[1][b][None],
@@ -329,8 +406,7 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
                 if streams[b] is not None:
                     parts[b][p].record_stream(
                         torch.cuda.current_stream(devs[b]))
-            full = torch.cat([parts[b][p].to(devs[0]) for b in range(B)])
-            out.append(full if device_out else full.cpu().numpy())
+            out.append(torch.cat([parts[b][p].to(devs[0])
+                                  for b in range(B)]))
         return tuple(out)
-
-    return run
+    return fn

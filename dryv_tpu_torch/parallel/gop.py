@@ -3,15 +3,16 @@ shards over the mesh "gop" axis and each slot reconstructs its pictures
 on its device.  Counterpart of ``dryv_tpu/parallel/gop.py``."""
 from __future__ import annotations
 
-import numpy as np
+import torch
 
 from ..pipeline import recon_syntax, tables_for
 from ..syntax import stack_frames, syntax_tensors
-from .mesh import fork_streams, join_streams, on_stream, slot_streams
+from .mesh import (fork_streams, join_streams, on_stream, run_eager,
+                   run_step, slot_streams)
 
 
 def decode_gop_sharded(fs_list, mesh, axis: str = "gop",
-                       use_pallas: bool = True):
+                       use_pallas: bool = True, graph: bool = True):
     """Decode a list of FrameSyntax (one geometry) sharded over the mesh
     `axis`; returns (y [F, H, W], cb, cr) uint8 numpy planes, uncropped.
 
@@ -23,24 +24,56 @@ def decode_gop_sharded(fs_list, mesh, axis: str = "gop",
     F = F_local, on its own CUDA stream.  Flat scaling lists, no in-loop
     filter, as there.  `use_pallas` is kept for the same signature: both
     values take one route, the kernel on CUDA devices and its plain
-    version on the CPU."""
+    version on the CPU.  With `graph` (the default) and every slot on
+    one device, the slots' work replays as one captured CUDA graph per
+    key (slot devices, axis, mb_w, mb_h, F_local, the syntax tensors'
+    names; ``mesh.STEPS``), the counterpart of the JAX version's
+    ``jax.jit(shard_map(...))``; otherwise it is enqueued op by op and
+    counted in ``STEPS.eager``: the same function on the same host
+    inputs, copied to the slots' devices."""
     del use_pallas
     if not fs_list:
         raise ValueError("empty GOP")
     mb_w, mb_h = fs_list[0].mb_w, fs_list[0].mb_h
     devs = mesh.axis_devices(axis)
     pad = (-len(fs_list)) % len(devs)
-    stacked = stack_frames(list(fs_list) + [fs_list[-1]] * pad)
     Fl = (len(fs_list) + pad) // len(devs)
+    s = syntax_tensors(stack_frames(list(fs_list) + [fs_list[-1]] * pad),
+                       "cpu")
+    names = tuple(sorted(s))
+    xs = [s[k][i * Fl:(i + 1) * Fl] for i in range(len(devs))
+          for k in names]
+    one = mesh.one_device(axis)
+    if graph and one is not None:
+        planes = run_step((tuple(devs), axis, mb_w, mb_h, Fl, names),
+                          lambda: _gop_fn(devs, mb_w, mb_h, names), xs, one)
+    else:
+        planes = run_eager(_gop_fn(devs, mb_w, mb_h, names), xs, devs)
+    return tuple(p.cpu().numpy()[:len(fs_list)] for p in planes)
+
+
+def _gop_fn(devs, mb_w, mb_h, names):
+    """The step's function, captured or run op by op: fn(*each slot's
+    syntax tensors in `names` order) -> (y, cb, cr) [F_local * slots, ...]
+    on devs[0], each slot's stage A and B2 on a stream of its own, forked
+    from the current stream and joined to it again."""
     streams = slot_streams(devs)
-    fork_streams(devs, streams)
-    outs = []
-    for i, (dev, st) in enumerate(zip(devs, streams)):
-        with on_stream(st):
-            s = syntax_tensors({k: v[i * Fl:(i + 1) * Fl]
-                                for k, v in stacked.items()}, dev)
-            outs.append(recon_syntax(s, tables_for(dev), mb_w, mb_h))
-    join_streams(devs, streams)
-    F = len(fs_list)
-    return tuple(np.concatenate([o[p].cpu().numpy() for o in outs])[:F]
-                 for p in range(3))
+    tabs = [tables_for(d) for d in devs]
+    k = len(names)
+
+    def fn(*xs):
+        fork_streams(devs, streams)
+        outs = []
+        for i, (st, tab) in enumerate(zip(streams, tabs)):
+            with on_stream(st):
+                outs.append(recon_syntax(dict(zip(names, xs[i * k:
+                                                        (i + 1) * k])),
+                                         tab, mb_w, mb_h))
+        join_streams(devs, streams)
+        for o, dev, st in zip(outs, devs, streams):
+            if st is not None:
+                for t in o:
+                    t.record_stream(torch.cuda.current_stream(dev))
+        return tuple(torch.cat([o[p].to(devs[0]) for o in outs])
+                     for p in range(3))
+    return fn

@@ -8,13 +8,24 @@ on a CUDA stream of its own, so slots overlap on one card and on several
 the copies between them go peer to peer.  A device may fill several
 slots (``["cuda:0"] * 4``, or ``["cpu"] * 8`` in the tests), as JAX's
 virtual CPU devices do.
+
+The JAX package compiles each sharded path once per static shape, a
+``jax.jit`` of a ``shard_map``.  The port's counterpart is ``STEPS``: a
+sharded path's device work, every slot's stream with its forks, joins
+and halo copies, captured as one CUDA graph per static key and replayed
+(``graphs.Step``).  A graph captures one device's work, so a mesh whose
+slots span several devices runs op by op; ``STEPS.eager`` counts those
+calls, and the calls made with ``graph=False``.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
+
+from ..graphs import StepCache
 
 
 class Mesh:
@@ -38,6 +49,12 @@ class Mesh:
         idx = [0] * self.devices.ndim
         idx[i] = slice(None)
         return list(self.devices[tuple(idx)])
+
+    def one_device(self, axis: str):
+        """The device of every slot along `axis`, or None when the slots
+        span several devices (their work cannot be one CUDA graph)."""
+        devs = set(self.axis_devices(axis))
+        return devs.pop() if len(devs) == 1 else None
 
 
 def make_mesh(axis_sizes: dict | None = None, devices=None) -> Mesh:
@@ -68,10 +85,25 @@ def _indexed(dev: torch.device) -> torch.device:
     return dev
 
 
+_LOCAL = threading.local()    # .streams: (device, slot index) -> stream
+
+
 def slot_streams(devices) -> list:
-    """One CUDA stream per slot (None for a CPU slot)."""
-    return [torch.cuda.Stream(device=d) if d.type == "cuda" else None
-            for d in devices]
+    """One CUDA stream per slot (None for a CPU slot), the same stream
+    for slot i on a device in every call of a thread: the caching
+    allocator keeps freed blocks per stream, so an op-by-op call on fresh
+    streams would allocate its intermediates anew from the driver.  Per
+    thread, so that no other thread's work lands on a stream that is
+    being captured."""
+    memo = getattr(_LOCAL, "streams", None)
+    if memo is None:
+        memo = _LOCAL.streams = {}
+    out = []
+    for i, d in enumerate(devices):
+        if d.type == "cuda" and (d, i) not in memo:
+            memo[d, i] = torch.cuda.Stream(device=d)
+        out.append(memo.get((d, i)))
+    return out
 
 
 def fork_streams(devices, streams) -> None:
@@ -94,3 +126,39 @@ def on_stream(stream):
     """Context that makes `stream` current (nothing for a CPU slot)."""
     return (torch.cuda.stream(stream) if stream is not None
             else contextlib.nullcontext())
+
+
+class MeshSteps(StepCache):
+    """The sharded paths' steps, keyed by (slot devices, axis, geometry,
+    ...); ``eager`` counts the calls that ran op by op instead."""
+
+    def __init__(self, max_keys):
+        super().__init__(max_keys)
+        self.eager = 0
+
+    def stats(self) -> dict:
+        return {**super().stats(), "eager": self.eager}
+
+
+STEPS = MeshSteps(max_keys=8)
+
+
+def run_step(key, make_fn, xs, device):
+    """Replay the step of `key` in ``STEPS`` (made by ``make_fn()`` at
+    its first use) on inputs `xs` (host or device tensors); returns the
+    clones of its outputs."""
+    with STEPS.hold(key, make_fn, xs, device) as step:
+        step.load(*xs)
+        return step()
+
+
+def run_eager(fn, xs, devices):
+    """The op-by-op route of a step's function: counts the call in
+    ``STEPS.eager``, copies each slot's equal share of the host inputs
+    `xs` (slot order, as ``run_step`` takes them) to its device, on that
+    device's current stream, from which ``fn``'s slot streams fork, and
+    returns fn(*copies)."""
+    with STEPS.lock:
+        STEPS.eager += 1
+    k = len(xs) // len(devices)
+    return fn(*(x.to(devices[i // k]) for i, x in enumerate(xs)))
