@@ -4,6 +4,8 @@
 
     python3 chip_smoke.py --compare DIR [DIR ...]   # also time earlier
                                                     # B1, B3, B4
+    python3 chip_smoke.py --multichip   # only the sharded paths over the
+                                        # first four cards (two or more)
 
 Builds the port's C++ host library (g++) and CUDA kernels (nvcc) from
 the sources in this checkout, and holds each kernel against its plain
@@ -49,7 +51,23 @@ or a stored golden:
   on ``bench_ipb.264`` and ``bench1080p_ipb.264``;
 - banded P recon, ``parallel.make_banded_p_recon_fn``, against motion
   compensation on the whole plane, eager and graphed on a mesh of one
-  card (two graphed calls on two pictures), eager on a mesh of several.
+  card (two graphed calls on two pictures);
+- the sharded paths' per-group route, where each group of a mesh axis's
+  slots on one card is a graph of its own and the halos and aprons
+  between groups go card to card (``parallel.mesh.peer_copy``): the 4
+  slots of one card cut in 2 and in 4 groups through the private seam
+  ``parallel.mesh._slot_group`` (``slot_groups_of``), the GOP over
+  {gop: 4} (F_local = 4), the band pipeline (4 bands of 17 MB rows, F =
+  16, Fi = 4) and the banded frame over {band: 4}, banded P recon over
+  {band: 4} (apron 64), the GOP and the banded frame over the 2-D mesh
+  {gop: 2, band: 2}, each graphed, eager, graphed and eager on other
+  inputs, bit-exact to the one-group route and native C++ (P recon: B4
+  on the whole plane); with several cards the same over the first four
+  (``multi_card_phase``: B2, B2b and B4 against their plain versions on
+  every card, the dry run over the cards twice, each path's step alone
+  and whole call timed on one card and on the cards in turns, the census
+  of its kernels per card, the graphs a call launches, each card's graph
+  pool).  ``--multichip`` runs only the build and that phase.
 
 Each decode path runs both ways: eager (``graph=False``, every op
 enqueued from the host) and graphed (the default: one captured CUDA
@@ -91,6 +109,7 @@ non-zero exit and no result line.  The last line is {"ok": true,
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import functools
@@ -107,6 +126,7 @@ import numpy as np
 import torch
 
 F = 16           # pictures per batch, as the benchmark runs
+ONE_CARD = ["cuda:0"] * 4   # the sharded paths' slots on one card
 MB_W, MB_H = 120, 68
 REPS = 3    # runs of each end-to-end timing, in turns
 SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's ~2 GHz SM clock
@@ -488,27 +508,46 @@ def earlier_builds(dirs):
     return {label: fns for label, (fns, _) in zip(labels, built)}
 
 
+def activity(seg):
+    """(count, ms from the first start to the last end, ms summed, ms
+    with at least one running) of device activities `seg`, in start
+    order."""
+    busy, cur = 0.0, None
+    for e in seg:      # the union of the activities' intervals
+        a, b = e.time_range.start, e.time_range.end
+        if cur is None or a > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0 if cur is None else cur[1] - cur[0]
+    return (len(seg), (max(e.time_range.end for e in seg)
+                       - seg[0].time_range.start) / 1e3 if seg else 0.0,
+            sum(e.time_range.end - e.time_range.start for e in seg) / 1e3,
+            busy / 1e3)
+
+
 def device_kernels_in_profile(segments, names):
     """One torch.profiler session over `segments`, [(label, fn)], each
     fn() run and synchronised in a record_function range of its own,
     20 ms apart.  For each label and each of `names`, the device ms of
     each device kernel whose name holds it and whose start falls in the
-    label's range (give or take 10 ms), in launch order; kernels a CUDA
-    graph replays are traced like the others.  Under the key "all", the
-    label's device activities of any name (kernels, copies, fills):
-    (count, ms from the first start to the last end, their ms summed, ms
-    when at least one runs).  None
+    label's range (give or take 10 ms), in launch order, and under
+    "by_device" their counts by card; kernels a CUDA graph replays are
+    traced like the others.  Under the key "all", the
+    label's device activities of any name (kernels, copies, fills) as
+    ``activity`` gives them, and under "all_by_device" the same by card.  None
     when the profiler records no device time.  It must be the process's
     first session: a second one records no device events."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
+    sync_all()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for label, fn in segments:
             with record_function(f"segment {label}"):
                 fn()
-                torch.cuda.synchronize()
+                sync_all()
             time.sleep(0.02)
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     evs = prof.events()
@@ -526,20 +565,13 @@ def device_kernels_in_profile(segments, names):
         out[label] = {n: [round((e.time_range.end - e.time_range.start)
                                 / 1e3, 4) for e in seg if n in e.name]
                       for n in names}
-        busy, cur = 0.0, None
-        for e in seg:      # the union of the kernels' intervals
-            a, b = e.time_range.start, e.time_range.end
-            if cur is None or a > cur[1]:
-                busy += 0 if cur is None else cur[1] - cur[0]
-                cur = [a, b]
-            else:
-                cur[1] = max(cur[1], b)
-        busy += 0 if cur is None else cur[1] - cur[0]
-        out[label]["all"] = (
-            len(seg), (max(e.time_range.end for e in seg)
-                       - seg[0].time_range.start) / 1e3 if seg else 0.0,
-            sum(e.time_range.end - e.time_range.start for e in seg) / 1e3,
-            busy / 1e3)
+        out[label]["by_device"] = {n: dict(sorted(collections.Counter(
+            e.device_index for e in seg if n in e.name).items()))
+            for n in names}
+        out[label]["all"] = activity(seg)
+        out[label]["all_by_device"] = {
+            d: activity([e for e in seg if e.device_index == d])
+            for d in sorted({e.device_index for e in seg})}
     return out
 
 
@@ -579,14 +611,6 @@ def span_summary(spans):
                                                       spans)
 
 
-def pool_mib(cache):
-    """MiB of card memory in the graph pools of a ``StepCache``'s steps
-    (the segments of ``torch.cuda.memory_snapshot`` in those pools)."""
-    ids = {tuple(p) for p in cache.pools.values()}
-    return sum(sg["total_size"] for sg in torch.cuda.memory_snapshot()
-               if tuple(sg.get("segment_pool_id", ())) in ids) / 2**20
-
-
 def host_calls_in_profile(fn):
     """(cudaLaunchKernel, cudaGraphLaunch) calls in a CPU-activity
     torch.profiler trace of fn() (the process's first profiler run took
@@ -615,6 +639,445 @@ def sync_calls(fn):
     return sum("synchronizing" in str(x.message) for x in caught)
 
 
+def sync_all():
+    """Wait for every card's work."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def span_host_ms(fn, reps=3):
+    """Mean (device span by CUDA events on the current card, host time to
+    return) ms of fn(), after one warm call, every card idle at each
+    start: the span runs from the current card's start to its end, after
+    which a sharded call's work has met there."""
+    fn()
+    sync_all()
+    tot = host = 0.0
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host += time.perf_counter() - t0
+        b.record()
+        sync_all()
+        tot += a.elapsed_time(b)
+    return tot / reps, host * 1e3 / reps
+
+
+@contextlib.contextmanager
+def slot_groups_of(size):
+    """Every `size` neighbouring slots of a mesh axis form a group, and so
+    a part of a sharded step with a graph of its own, as the slots of one
+    card do on a mesh of several (the private seam
+    ``parallel.mesh._slot_group``); None leaves the grouping by card."""
+    from dryv_tpu_torch.parallel import mesh
+
+    orig = mesh._slot_group
+    if size is not None:
+        mesh._slot_group = lambda i, d: (d, i // size)
+    try:
+        yield
+    finally:
+        mesh._slot_group = orig
+
+
+def p_case(seed, ref, mb_w, mb_h):
+    """A random P picture over the reference planes `ref` (y, cb, cr on
+    one card): vectors within +-80 x +-48 pixels, 5% of blocks without a
+    reference.  Returns the host arguments of a banded P recon call and
+    its planes from B4 on the whole plane and the residual add."""
+    from dryv_tpu_torch.kernels.inter import mc_frame
+
+    dev = ref[0].device
+    n = mb_w * mb_h
+    prng = np.random.default_rng(seed)
+    n4 = 16 * n
+    pmv = np.stack([prng.integers(-4 * 80, 4 * 80 + 1, n4),
+                    prng.integers(-4 * 48, 4 * 48 + 1, n4)], 1)
+    prs = np.where(prng.random(n4) < 0.05, -1, 0)
+    yres = prng.integers(-30, 31, (n, 16, 16))
+    cres = prng.integers(-30, 31, (n, 2, 8, 8))
+    py, pc = mc_frame(*(p[None] for p in ref),
+                      torch.from_numpy(prs.astype(np.int8)).to(dev), None,
+                      torch.from_numpy(pmv.astype(np.int16)).to(dev), None,
+                      {"mode": 0}, mb_w, mb_h)
+    ty = (py.int() + torch.from_numpy(yres).to(dev)).clamp(0, 255)
+    tc = (pc.int() + torch.from_numpy(cres).to(dev)).clamp(0, 255)
+    want = (ty.view(mb_h, mb_w, 16, 16).permute(0, 2, 1, 3)
+            .reshape(16 * mb_h, 16 * mb_w),
+            *(tc[:, p].reshape(mb_h, mb_w, 8, 8).permute(0, 2, 1, 3)
+              .reshape(8 * mb_h, 8 * mb_w) for p in (0, 1)))
+    host = [p.cpu().numpy() for p in ref]
+    return (*host, pmv, prs, yres, cres), [w.to(torch.uint8) for w in want]
+
+
+def sharded_paths(frames, sps, p_cases):
+    """The sharded paths over a mesh of 4 slots: {name: (call,
+    step_args)}, call(devs, graph, i) -> the frames' planes as
+    numpy (y, cb, cr) per frame, cropped, for input set i (0: the
+    pictures in order, 1: reversed; P recon: picture i), and
+    step_args(devs, i) -> (key, maker, host inputs) of that call's
+    step.  Run objects are made anew for each call; their steps persist
+    in ``parallel.STEPS`` by key."""
+    from dryv_tpu_torch import parallel
+    from dryv_tpu_torch.decoder import DecodedFrame
+
+    def order(i):
+        return frames if i == 0 else frames[::-1]
+
+    def crop(planes):
+        return [(c.y, c.cb, c.cr) for c in
+                (DecodedFrame(*p).crop(sps) for p in zip(*planes))]
+
+    def host(planes):
+        return [p.cpu().numpy() if torch.is_tensor(p) else p
+                for p in planes]
+
+    def mesh(axes, devs):
+        return parallel.make_mesh(axes, devs)
+
+    def gop(axes):
+        return (lambda devs, g, i: crop(parallel.decode_gop_sharded(
+                    order(i), mesh(axes, devs), graph=g)),
+                lambda devs, i: parallel.gop.step_args(order(i),
+                                                       mesh(axes, devs)))
+
+    def band_gop(devs, g):
+        return parallel.make_banded_gop_fn(mesh({"band": 4}, devs), MB_W,
+                                           MB_H, 16, Fi=4, graph=g)
+
+    def frame(axes):
+        def run(devs, g):
+            return parallel.make_banded_frame_fn(mesh(axes, devs), MB_W, MB_H,
+                                                 graph=g)
+        return (lambda devs, g, i: crop([p[None] for p in host(
+                    run(devs, g)(order(i)[0], device_out=True))]),
+                lambda devs, i: run(devs, True).step_args(order(i)[0]))
+
+    def p_run(devs, g):
+        return parallel.make_banded_p_recon_fn(mesh({"band": 4}, devs), MB_W,
+                                               MB_H, apron=64, graph=g)
+
+    return {
+        "decode_gop_sharded {gop: 4}": gop({"gop": 4}),
+        "make_banded_gop_fn {band: 4}": (
+            lambda devs, g, i: crop(host(band_gop(devs, g)(
+                order(i), device_out=True))),
+            lambda devs, i: band_gop(devs, True).step_args(order(i))),
+        "make_banded_frame_fn {band: 4}": frame({"band": 4}),
+        "make_banded_p_recon_fn {band: 4}": (
+            lambda devs, g, i: [tuple(host(p_run(devs, g)(
+                *p_cases[i][0], device_out=True)))],
+            lambda devs, i: p_run(devs, True).step_args(*p_cases[i][0])),
+        "decode_gop_sharded {gop: 2, band: 2}": gop({"gop": 2, "band": 2}),
+        "make_banded_frame_fn {gop: 2, band: 2}": frame({"gop": 2,
+                                                        "band": 2}),
+    }
+
+
+def sharded_routes(card, label, devs, paths, want, size=None):
+    """Every path of ``sharded_paths`` over the 4 slots `devs` (their
+    slots cut in groups of `size` through ``slot_groups_of``, or grouped
+    by card), graphed, eager, graphed on the other inputs (the first
+    call's planes held), eager on them: each graphed call a step of one
+    part per group (one graph per part), counted in no eager call, each
+    eager call counted once; every result bit-exact to the others and to
+    want[name][i] (the one-card graphed route's planes, checked against
+    native C++ or B4 on the whole plane).  Fails on any difference."""
+    from dryv_tpu_torch import parallel
+
+    ng = {}
+    for name, (call, step_args) in paths.items():
+        with slot_groups_of(size):
+            key = step_args(devs, 0)[0]
+            held = []
+            for g, i in ((True, 0), (False, 0), (True, 1), (False, 1)):
+                e0 = parallel.STEPS.eager
+                got = call(devs, g, i)
+                if parallel.STEPS.eager - e0 != (not g):
+                    fail(f"{name} over {label}, graph={g}: "
+                         f"{parallel.STEPS.eager - e0} eager calls counted")
+                for f, (a, b) in enumerate(zip(got, want[name][i])):
+                    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                        fail(f"{name} over {label}, graph={g}, input set "
+                             f"{i}: frame {f} differs from the one-card "
+                             f"graphed route")
+                if len(got) != len(want[name][i]):
+                    fail(f"{name} over {label}: {len(got)} frames")
+                held.append(got)
+            for f, (a, b) in enumerate(zip(held[0], want[name][0])):
+                if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                    fail(f"{name} over {label}: the first graphed call's "
+                         f"frame {f} changed under later calls")
+        step = parallel.STEPS.steps.get(key)
+        parts = [] if step is None else step.split.parts
+        devs_of = [str(d) for d, _, _ in parts]
+        if step is None or (step.devices[0].type == "cuda"
+                            and len(step.graphs or ()) != len(parts)):
+            fail(f"{name} over {label}: no graphed step of its key")
+        ng[name] = len(parts)
+        print(f"{name} over {label}: graphed ({len(parts)} parts on "
+              f"{devs_of}, one graph each) and eager, on two input sets, "
+              f"bit-exact to each other and to the one-card graphed route "
+              f"(native C++ / B4 on the whole plane)")
+    return ng
+
+
+def one_card_wants(paths, refs, p_cases):
+    """The planes of each path of ``sharded_paths`` on the one-card
+    graphed route (['cuda:0'] * 4, one group), for both input sets, each
+    held against `refs` (native C++, per frame, the pictures in order)
+    or B4 on the whole plane."""
+    want = {}
+    for name, (call, _) in paths.items():
+        want[name] = []
+        for i in (0, 1):
+            got = call(ONE_CARD, True, i)
+            if "p_recon" in name:
+                exp = [tuple(w.cpu().numpy() for w in p_cases[i][1])]
+            else:
+                exp = refs if i == 0 else refs[::-1]
+                exp = exp[:len(got)]
+            if len(got) != len(exp) or not all(
+                    np.array_equal(x, y) for a, b in zip(got, exp)
+                    for x, y in zip(a, b)):
+                fail(f"{name} over ['cuda:0'] * 4, graphed, input set {i}, "
+                     f"differs from native C++ / B4 on the whole plane")
+            want[name].append(got)
+    print(f"one-card graphed route (['cuda:0'] * 4, one graph a step) of "
+          f"{len(paths)} sharded paths on two input sets: bit-exact to native "
+          f"C++ / B4 on the whole plane")
+    return want
+
+
+def kernels_on_cards(card, cards):
+    """B2 at 120x68 MBs x 4 (decode_gop_sharded's F_local on 4 slots), B2b
+    at 120x17 x 4 under a band with a halo, and B4 on a band of 17 MB rows
+    with 64-row aprons (banded P recon's call) on every card, bit-exact to
+    their plain versions (run once, on the first card)."""
+    from dryv_tpu_torch.kernels.inter import mc_frame, mc_frame_wire_plain
+    from dryv_tpu_torch.kernels.wavefront import (intra_recon,
+                                                  intra_recon_plain,
+                                                  recon_inputs)
+    from dryv_tpu_torch.tables import decoder_tables
+
+    rng = np.random.default_rng(99)
+    cases = []
+    for rows, below in ((MB_H, False), (17, True)):
+        s_np, yz, c = random_syntax(rng, MB_W, rows, 4, below_band=below)
+        halo = (torch.from_numpy(rng.integers(0, 256, (4, 16 * MB_W))
+                                 .astype(np.uint8)),
+                torch.from_numpy(rng.integers(0, 256, (4, 2, 8 * MB_W))
+                                 .astype(np.uint8))) if below else None
+        ins = recon_inputs({k: torch.from_numpy(v) for k, v in s_np.items()},
+                           torch.from_numpy(yz), torch.from_numpy(c))
+        cases.append((f"intra_wavefront{'_banded' if below else ''} at "
+                      f"{MB_W}x{rows} x 4",
+                      lambda d, a, tab, rows=rows: (
+                          intra_recon(*a[:-2], tab, MB_W, rows,
+                                      halo=a[-2:] if a[-1] is not None
+                                      else None)),
+                      lambda d, a, tab, rows=rows: intra_recon_plain(
+                          *a[:-2], tab, MB_W, rows,
+                          a[-2:] if a[-1] is not None else None),
+                      [*ins, *(halo or (None, None))]))
+    hb, A = 17, 64
+    n4 = 16 * hb * MB_W
+    ext = [torch.from_numpy(rng.integers(0, 256, shp).astype(np.uint8))
+           for shp in ((1, 16 * hb + 2 * A, 16 * MB_W),
+                       (1, 8 * hb + A, 8 * MB_W), (1, 8 * hb + A, 8 * MB_W))]
+    rs = torch.from_numpy(np.where(rng.random(n4) < 0.05, -1, 0)
+                          .astype(np.int8))
+    mv = torch.from_numpy(np.stack([rng.integers(-320, 321, n4),
+                                    rng.integers(-192, 193, n4)], 1)
+                          .astype(np.int16))
+    b4 = (*ext, rs, None, mv, None, {"mode": 0}, MB_W, hb)
+    cases.append((f"inter_mc on a band of {MB_W}x{hb} with {A}-row aprons",
+                  lambda d, a, tab: mc_frame(*a, row0=A // 4),
+                  lambda d, a, tab: mc_frame_wire_plain(*a, row0=A // 4),
+                  b4))
+
+    def on(a, d):
+        return [x.to(d) if torch.is_tensor(x) else x for x in a]
+
+    for label, kernel, plain, args in cases:
+        d0 = torch.device(cards[0])
+        want = plain(d0, on(args, d0), decoder_tables(d0))
+        for c in dict.fromkeys(cards):
+            d = torch.device(c)
+            got = kernel(d, on(args, d), decoder_tables(d))
+            torch.cuda.synchronize(d)
+            if any(not torch.equal(g.to(d0), w) for g, w in zip(got, want)):
+                fail(f"{label} on {c} differs from its plain version")
+        print(f"kernel {label}: bit-exact to its plain version on "
+              f"{list(dict.fromkeys(cards))}  [{card}]")
+
+
+def card_census_segments(label, call, devs, size=None):
+    """Census segments of one sharded call over `devs`, graphed and eager
+    (slots cut by ``slot_groups_of(size)``), and the eager call's wrapper
+    counts of B2 + B2b and of B4, taken here."""
+    from dryv_tpu_torch.kernels.inter import mc_frame
+    from dryv_tpu_torch.kernels.wavefront import intra_recon
+
+    def run(graph):
+        def fn():
+            with slot_groups_of(size):
+                call(devs, graph, 0)
+        return fn
+
+    before = [intra_recon.launches + intra_recon.banded_launches,
+              mc_frame.launches]
+    run(False)()
+    sync_all()
+    eager = {"intra_rows_kernel": intra_recon.launches
+             + intra_recon.banded_launches - before[0],
+             "inter_mc_kernel": mc_frame.launches - before[1]}
+    return [(f"{label}, graphed", run(True)), (f"{label}, eager", run(False))
+            ], eager
+
+
+def check_card_census(card, trace, entries):
+    """entries: (label, eager wrapper counts) of ``card_census_segments``;
+    the graphed call's device kernels per card in the trace must equal
+    the eager call's, and their sums the eager wrapper counts."""
+    for label, eager in entries:
+        g, e = ({n: trace[f"{label}, {r}"]["by_device"][n] for n in eager}
+                for r in ("graphed", "eager"))
+        act = trace[f"{label}, graphed"]["all_by_device"]
+        print(f"device kernels per card of {label}, in the census trace: "
+              f"graphed {g}, eager {e}; eager wrapper counts {eager}; "
+              f"graphed, each card's device activities (count, ms first "
+              f"start to last end, ms summed, ms busy): " + ", ".join(
+                  f"cuda:{d} ({n}, {sp:.3f}, {sm:.3f}, {b:.3f})"
+                  for d, (n, sp, sm, b) in act.items()) + f"  [{card}]")
+        if g != e or {n: sum(c.values()) for n, c in g.items()} != eager:
+            fail(f"{label}: the graphed call launched other kernels per "
+                 f"card than the eager one")
+
+
+def cards_numbers(card, cards, paths):
+    """For every path, the one-card route (['cuda:0'] * 4) and the route
+    over `cards`, in turns (one card, cards, cards, one card): the step
+    alone with its inputs loaded, graphed (the replays and the planes'
+    meeting on the first card) and eager (its parts op by op on inputs
+    already on the cards), and the whole call (FrameSyntax or host arrays
+    in, planes out) graphed and eager, each as device span (CUDA events
+    on cuda:0, every card idle at the start, so from the first card's
+    fork to the join) and host ms to return; the graphs a graphed call
+    replays."""
+    from dryv_tpu_torch import parallel
+
+    n = len(set(cards))
+    routes = {"1 card": ONE_CARD, f"{n} cards": cards}
+    for name, (call, step_args) in paths.items():
+        t = {}
+        for r in list(routes) + list(routes)[::-1]:
+            devs = routes[r]
+            key, make, xs = step_args(devs, 0)
+            with parallel.STEPS.hold(key, make, xs) as st:
+                st.load(*xs)
+                n_graphs = len(st.graphs or ())
+                g_step = span_host_ms(st)
+            split = make()
+            on = [d for d, k, _ in split.parts for _ in range(k)]
+            ins = [x.to(d) for x, d in zip(xs, on)]
+            e_step = span_host_ms(lambda: split(*ins))
+            g_call = span_host_ms(lambda: call(devs, True, 0), 2)
+            e_call = span_host_ms(lambda: call(devs, False, 0), 2)
+            t.setdefault(r, []).append((g_step, e_step, g_call, e_call,
+                                        n_graphs))
+        cols = ("step graphed", "step eager", "whole call graphed",
+                "whole call eager")
+        print(f"{name}, {' / '.join(routes)} in turns, device span (host "
+              f"ms to return), mean of 3 (whole calls: 2): " + "; ".join(
+                  f"{c} " + ", ".join(f"{r} " + " / ".join(
+                      f"{v[j][0]:.3f} ({v[j][1]:.3f})" for v in t[r])
+                      for r in routes) for j, c in enumerate(cols))
+              + "; graphs replayed a call: " + ", ".join(
+                  f"{r} {t[r][0][4]}" for r in routes) + f"  [{card}]")
+
+
+def multi_card_phase(card, cards, paths, want, gop_stream, nthreads):
+    """The sharded paths over the 4 slots `cards` (several cards, repeated
+    when fewer than 4), graphed and eager in turns against the one-card
+    graphed route, native C++ and B4 on the whole plane; the dry run over
+    cards * 2; their numbers beside the one-card route's.  Returns the
+    census segments and entries, and the host-side launch counts to take
+    after the census."""
+    from dryv_tpu_torch import parallel
+
+    n = len(set(cards))
+    label = f"{cards}"
+    sharded_routes(card, label, cards, paths, want)
+    e0 = parallel.STEPS.eager
+    parallel.dryrun_multichip(8, cards * 2, stream=gop_stream,
+                              n_threads=nthreads)
+    if parallel.STEPS.eager != e0:
+        fail("dryrun_multichip over several cards counted eager calls")
+    cards_numbers(card, cards, paths)
+    segments, entries = [], []
+    for name, (call, _) in paths.items():
+        segs, eager = card_census_segments(f"{name} over {n} cards", call,
+                                           cards)
+        segments += segs
+        entries.append((f"{name} over {n} cards", eager))
+
+    def host_side():
+        for name, (call, _) in paths.items():
+            print(f"{name}: cudaLaunchKernel, cudaGraphLaunch a graphed "
+                  f"whole call (CPU-activity torch.profiler): 1 card "
+                  f"{host_calls_in_profile(lambda: call(ONE_CARD, True, 0))}"
+                  f", {n} cards "
+                  f"{host_calls_in_profile(lambda: call(cards, True, 0))}")
+        st = parallel.STEPS.stats()
+        print(f"captured steps of the sharded paths: {json.dumps(st)}  "
+              f"[{card}]")
+    return segments, entries, host_side
+
+
+def multichip_only(card, name, cards, gop_stream, nthreads, phase,
+                   phase_s):
+    """``--multichip``: B2, B2b and B4 against their plain versions on
+    every card, the sharded paths over `cards` (``multi_card_phase``),
+    the census of their launches per card (the run's one device trace),
+    then their host-side launch counts; ends with the result line."""
+    from dryv_tpu_torch.native.full import decode_annexb_native
+    from dryv_tpu_torch.pipeline import frames_from_stream
+
+    phase("3 kernels on every card")
+    kernels_on_cards(card, cards)
+    phase("9-11 sharded paths over several cards")
+    frames, sps = frames_from_stream(gop_stream, n_threads=nthreads)
+    refs = [(r.y, r.cb, r.cr) for r in
+            decode_annexb_native(gop_stream, n_threads=nthreads)]
+    rng = np.random.default_rng(2024)
+    ref = [torch.from_numpy(rng.integers(0, 256, shp).astype(np.uint8))
+           .to("cuda:0") for shp in ((16 * MB_H, 16 * MB_W),
+                                     (8 * MB_H, 8 * MB_W),
+                                     (8 * MB_H, 8 * MB_W))]
+    p_cases = [p_case(seed, ref, MB_W, MB_H) for seed in (5, 6)]
+    paths = sharded_paths(frames, sps, p_cases)
+    want = one_card_wants(paths, refs, p_cases)
+    segments, entries, host_side = multi_card_phase(
+        card, cards, paths, want, gop_stream, nthreads)
+    phase("12 census")
+    trace = device_kernels_in_profile(segments, ("intra_rows_kernel",
+                                                 "inter_mc_kernel"))
+    if trace is None:
+        fail("the profiler recorded no device time")
+    check_card_census(card, trace, entries)
+    host_side()
+    phase("end")
+    print(f"seconds from the start at which each phase began: "
+          f"{json.dumps(phase_s)}  [{card}]")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--compare", metavar="DIR", nargs="+",
@@ -623,6 +1086,10 @@ def main():
                          "that DIR holds, with DIR/common.cuh) in turns "
                          "with the current ones; B1 and B3 from the first "
                          "DIR that holds them, B4 from each")
+    ap.add_argument("--multichip", action="store_true",
+                    help="only the build, B2, B2b and B4 against their plain "
+                         "versions on every card, and the sharded paths over "
+                         "the first four cards (needs two or more)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -692,6 +1159,25 @@ def main():
         print(f"build: earlier kernels from {' '.join(args.compare)} "
               f"{time.perf_counter() - t0:.2f} s (one nvcc per source)  "
               f"[{card}]")
+
+    n_cards = torch.cuda.device_count()
+    print(f"peer access (row: card, column: peer; "
+          f"torch.cuda.can_device_access_peer): " + json.dumps(
+              [[int(i == j or torch.cuda.can_device_access_peer(i, j))
+                for j in range(n_cards)] for i in range(n_cards)]))
+    cards = ([f"cuda:{i}" for i in range(min(4, n_cards))] * 4)[:4]
+    nthreads = os.cpu_count() or 1
+    gop_stream = open("benchdata/bench1080p_gop16.264", "rb").read()
+    # this run makes up to 18 sharded keys (one-card, seam and multi-card
+    # groupings) and its census replays their steps as made, so none may
+    # be released before it: the run's own bound, above the default 8
+    parallel.STEPS.max_keys = 32
+    if args.multichip:
+        if n_cards < 2:
+            fail("--multichip needs two or more cards")
+        multichip_only(card, name, cards, gop_stream, nthreads, phase,
+                       phase_s)
+        return
 
     print(f"int32 peak {int32_ops_per_s() / 1e12:.3f} T/s "
           f"({INT32_OPS_PER_CLOCK_PER_SM} a clock per SM, "
@@ -1064,8 +1550,6 @@ def main():
 
     # ---- phases 4-6: the main path, bit-exact, counted ----------------
     phase("4-6 main path")
-    nthreads = os.cpu_count() or 1
-    gop_stream = open("benchdata/bench1080p_gop16.264", "rb").read()
     checks = [("bench1080p_gop16.264", gop_stream, "native C++")]
     for stem in ("bench1080p_qp20", "bench1080p_qp40"):
         checks.append((f"{stem}.264",
@@ -1296,8 +1780,7 @@ def main():
               f"{t[0]:.3f} / {t[3]:.3f} ms, this B3 {t[1]:.3f} / "
               f"{t[2]:.3f} ms; every frame bit-exact  [{card}]")
     print(f"captured steps of the batched path: "
-          f"{json.dumps(gop_pipeline.STEPS.stats())}, their pool "
-          f"{pool_mib(gop_pipeline.STEPS):.1f} MiB  [{card}]")
+          f"{json.dumps(gop_pipeline.STEPS.stats())}  [{card}]")
 
     # ---- phase 8: the per-picture path (CAVLC, scaling matrices) -------
     phase("8 per-picture")
@@ -1391,8 +1874,7 @@ def main():
 
     host_side.append(per_picture_host_calls)
     print(f"captured steps of the per-picture path: "
-          f"{json.dumps(pipeline.STEPS.stats())}, their pool "
-          f"{pool_mib(pipeline.STEPS):.1f} MiB  [{card}]")
+          f"{json.dumps(pipeline.STEPS.stats())}  [{card}]")
 
     # ---- phase 9: the sharded paths on one card, eager and graphed -----
     # graph=False enqueues each path op by op on its mesh slots' streams;
@@ -1478,41 +1960,23 @@ def main():
     census.append(("sharded GOP", lambda: gop_sharded(True), c_gop, {}))
     census.append(("band pipeline", lambda: banded(True), c_band,
                    {"intra_wavefront_banded": "intra_wavefront_banded"}))
-    n_cards = torch.cuda.device_count()
     if n_cards > 1:
-        # slots on several cards: the eager route, counted
+        # slots on several cards: graphed, one graph per card, no eager
+        # call counted
         devs = [f"cuda:{i}" for i in range(n_cards)]
+        mesh = parallel.make_mesh({"gop": len(devs)}, devs)
         e0 = parallel.STEPS.eager
-        planes = parallel.decode_gop_sharded(
-            frames, parallel.make_mesh({"gop": len(devs)}, devs))
+        planes = parallel.decode_gop_sharded(frames, mesh)
         check_planes(f"decode_gop_sharded over {devs}",
                      list(zip(*planes)), refs[0])
-        if parallel.STEPS.eager != e0 + 1:
-            fail("a mesh over several cards took no counted eager route")
-        n_eager[0] += 1
+        step = parallel.STEPS.steps[parallel.gop.step_args(frames, mesh)[0]]
+        if parallel.STEPS.eager != e0 or len(step.graphs) != len(devs):
+            fail("a mesh over several cards did not replay a graph per card")
     parallel.dryrun_multichip(4, ["cuda:0"] * 4, stream=gop_stream,
                               n_threads=nthreads)
     if parallel.STEPS.eager != n_eager[0]:
         fail(f"parallel.STEPS counted {parallel.STEPS.eager} eager calls, "
              f"{n_eager[0]} were made")
-
-    def span_host_ms(fn, reps=3):
-        """Mean (device span by CUDA events, host time to return) ms of
-        fn(), after one warm call."""
-        fn()
-        torch.cuda.synchronize()
-        tot = host = 0.0
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            t0 = time.perf_counter()
-            fn()
-            host += time.perf_counter() - t0
-            b.record()
-            torch.cuda.synchronize()
-            tot += a.elapsed_time(b)
-        return tot / reps, host * 1e3 / reps
 
     def spans_in_turns(label, fns):
         """fns: {name: fn}; each timed in the order a, b, ..., ..., b, a;
@@ -1529,13 +1993,14 @@ def main():
 
     # device span of stage A + wavefront over the 16 pictures, syntax
     # already on the card: unbanded B2, the 4-band pipeline eager (the
-    # step's function op by op) and graphed (its replay and the clones)
+    # step's function op by op) and graphed (its replay and its planes'
+    # copy out of the static outputs)
     syn = syntax_tensors(stack_frames(frames), dev)
     tabs = tables_for(dev)
     band_step = run4[True].step_args(frames)
     band_fn = band_step[1]()
     band_syn = [x.to(dev) for x in band_step[2]]
-    with parallel.STEPS.hold(*band_step, run4[True].device) as step:
+    with parallel.STEPS.hold(*band_step) as step:
         step.load(*band_step[2])
         if not all(torch.equal(a, b) for a, b in zip(step(),
                                                      band_fn(*band_syn))):
@@ -1567,8 +2032,7 @@ def main():
               f"{d:.3f} ({h:.3f})" for d, h in v)
               for g, v in spans.items()) + f" ms  [{card}]")
     print(f"captured steps of the sharded paths: "
-          f"{json.dumps(parallel.STEPS.stats())}, their pool "
-          f"{pool_mib(parallel.STEPS):.1f} MiB; card memory reserved "
+          f"{json.dumps(parallel.STEPS.stats())}; card memory reserved "
           f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB  [{card}]")
 
     # ---- phase 10: the packed I/P/B path, eager and graphed ------------
@@ -1779,22 +2243,26 @@ def main():
     kept, capture = device_ipb_packed.STEPS, graphs.Step._capture
 
     def strict_capture(self):
-        fn = self.fn
+        split = self.split
 
-        def checked(*a):
-            if not torch.cuda.is_current_stream_capturing():
-                return fn(*a)        # the warm-up run
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return fn(*a)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+        def checked(fn):
+            def run(*a):
+                if not torch.cuda.is_current_stream_capturing():
+                    return fn(*a)        # the warm-up run
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return run
 
-        self.fn = checked
+        self.split = graphs.Split([(d, n, checked(fn))
+                                   for d, n, fn in split.parts],
+                                  split.after, split.before)
         try:
             capture(self)
         finally:
-            self.fn = fn
+            self.split = split
 
     device_ipb_packed.STEPS = graphs.StepCache()
     graphs.Step._capture = strict_capture
@@ -1877,8 +2345,7 @@ def main():
 
     host_side.append(ipb_host_calls)
     print(f"captured steps of the packed I/P/B path: "
-          f"{json.dumps(device_ipb_packed.STEPS.stats())}, their pool "
-          f"{pool_mib(device_ipb_packed.STEPS):.1f} MiB; card memory "
+          f"{json.dumps(device_ipb_packed.STEPS.stats())}; card memory "
           f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB  "
           f"[{card}]")
 
@@ -1886,34 +2353,7 @@ def main():
     # eager and graphed in turns; two graphed calls on two P pictures
     phase("11 banded P recon")
     ref = [p[0] for p in stacks]
-    host_ref = [p.cpu().numpy() for p in ref]
-
-    def p_case(seed):
-        """A random 1080p P picture over the first reference (host
-        arguments of a banded P recon call) and its planes from B4 on the
-        whole plane and the residual add."""
-        prng = np.random.default_rng(seed)
-        n4 = 16 * n
-        pmv = np.stack([prng.integers(-4 * 80, 4 * 80 + 1, n4),
-                        prng.integers(-4 * 48, 4 * 48 + 1, n4)], 1)
-        prs = np.where(prng.random(n4) < 0.05, -1, 0)
-        yres = prng.integers(-30, 31, (n, 16, 16))
-        cres = prng.integers(-30, 31, (n, 2, 8, 8))
-        py, pc = mc_frame(*(p[None] for p in ref),
-                          torch.from_numpy(prs.astype(np.int8)).to(dev),
-                          None,
-                          torch.from_numpy(pmv.astype(np.int16)).to(dev),
-                          None, {"mode": 0}, MB_W, MB_H)
-        ty = (py.int() + torch.from_numpy(yres).to(dev)).clamp(0, 255)
-        tc = (pc.int() + torch.from_numpy(cres).to(dev)).clamp(0, 255)
-        want = (ty.view(MB_H, MB_W, 16, 16).permute(0, 2, 1, 3)
-                .reshape(16 * MB_H, 16 * MB_W),
-                *(tc[:, p].reshape(MB_H, MB_W, 8, 8).permute(0, 2, 1, 3)
-                  .reshape(8 * MB_H, 8 * MB_W) for p in (0, 1)))
-        return (*host_ref, pmv, prs, yres, cres), [w.to(torch.uint8)
-                                                   for w in want]
-
-    p_cases = [p_case(5), p_case(6)]
+    p_cases = [p_case(seed, ref, MB_W, MB_H) for seed in (5, 6)]
     p_mesh = parallel.make_mesh({"band": 4}, ["cuda:0"] * 4)
     prun = {g: parallel.make_banded_p_recon_fn(p_mesh, MB_W, MB_H, apron=64,
                                                graph=g) for g in (False, True)}
@@ -1955,24 +2395,28 @@ def main():
         run = parallel.make_banded_p_recon_fn(
             parallel.make_mesh({"band": len(devs)}, devs), MB_W, MB_H,
             apron=64)
+        e0 = parallel.STEPS.eager
         got = run(*p_cases[0][0], device_out=True)
-        if run.graphed or not all(torch.equal(g.to(dev), w) for g, w in
-                                  zip(got, p_cases[0][1])):
-            fail(f"banded P recon over {devs} took the graphed route or "
-                 f"differs from B4 on the whole plane")
-        print(f"banded P recon over {devs} (eager): equal to B4 on the "
-              f"whole plane")
+        step = parallel.STEPS.steps[run.step_args(*p_cases[0][0])[0]]
+        if not run.graphed or parallel.STEPS.eager != e0 or len(
+                step.graphs) != len(devs) or not all(
+                torch.equal(g.to(dev), w) for g, w in zip(got,
+                                                          p_cases[0][1])):
+            fail(f"banded P recon over {devs} did not replay a graph per "
+                 f"card or differs from B4 on the whole plane")
+        print(f"banded P recon over {devs} (graphed, a graph per card): "
+              f"equal to B4 on the whole plane")
     spans_in_turns("a 1080p P picture, banded P recon call (4 bands of 17 MB "
              "rows, apron 64, host arrays in, device output)",
              {"eager": lambda: p_recon(False),
               "graphed": lambda: p_recon(True)})
     # the device work alone, inputs on the card: the step's function op
     # by op (apron hops, B4, residual add, assembly) eager, its replay and
-    # the clones graphed
+    # its planes' copy out of the static outputs graphed
     p_step = prun[True].step_args(*p_cases[0][0])
     p_fn = p_step[1]()
     p_in = [x.to(dev) for x in p_step[2]]
-    with parallel.STEPS.hold(*p_step, p_mesh.one_device("band")) as step:
+    with parallel.STEPS.hold(*p_step) as step:
         step.load(*p_step[2])
         if not all(torch.equal(g, w) for g, w in zip(step(), e_p)) or \
                 not all(torch.equal(g, w) for g, w in zip(p_fn(*p_in), e_p)):
@@ -1988,9 +2432,29 @@ def main():
               f"{d:.3f} ({h:.3f})" for d, h in v)
               for g, v in spans.items()) + f" ms  [{card}]")
     print(f"captured steps of the sharded paths and banded P recon: "
-          f"{json.dumps(parallel.STEPS.stats())}, their pool "
-          f"{pool_mib(parallel.STEPS):.1f} MiB; card memory reserved "
+          f"{json.dumps(parallel.STEPS.stats())}; card memory reserved "
           f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB  [{card}]")
+
+    # ---- phase 11b: the per-group route (a graph per card) -------------
+    # on this card through the seam (its 4 slots in 2 and in 4 groups,
+    # each group a graph of its own, halos between groups card to card),
+    # and over several cards when there are
+    phase("11b slot groups")
+    paths = sharded_paths(frames, gsps, p_cases)
+    want = one_card_wants(paths, refs[0], p_cases)
+    for size in (2, 1):
+        sharded_routes(card, f"['cuda:0'] * 4 in groups of {size}",
+                       ONE_CARD, paths, want, size)
+    label = "make_banded_gop_fn {band: 4} over ['cuda:0'] * 4 in 4 groups"
+    card_segments, eager = card_census_segments(
+        label, paths["make_banded_gop_fn {band: 4}"][0], ONE_CARD, 1)
+    card_entries = [(label, eager)]
+    if n_cards > 1:
+        segs, entries, multi_host = multi_card_phase(
+            card, cards, paths, want, gop_stream, nthreads)
+        card_segments += segs
+        card_entries += entries
+        host_side.append(multi_host)
 
     # ---- phase 12: the census, the run's one device trace --------------
     # the per-call kernels of phase 3, then each graphed path's streams
@@ -2001,14 +2465,16 @@ def main():
               parallel.STEPS)
     for _, fn, _, _ in census:
         fn()
+    for _, fn in card_segments:
+        fn()
     made = [x.made for x in caches]
     def band_replay():
-        with parallel.STEPS.hold(*band_step, run4[True].device) as st:
+        with parallel.STEPS.hold(*band_step) as st:
             st()
 
     trace = device_kernels_in_profile(
         [("per call", per_call)] + [(p, fn) for p, fn, _, _ in census]
-        + [("band pipeline replay", band_replay)], names)
+        + [("band pipeline replay", band_replay)] + card_segments, names)
     if trace is None:
         fail("the profiler recorded no device time: the graphed paths' "
              "launches are not measured")
@@ -2042,6 +2508,7 @@ def main():
                 fail(f"{path}: the census cannot tell {k} from the other "
                      f"counters of {n}")
             kernels[line]["launches"] = got[n]
+    check_card_census(card, trace, card_entries)
     n_act, span, summed, busy = trace["band pipeline replay"]["all"]
     print(f"one replay of the 4-band pipeline's step (16 pictures, Fi=4) in "
           f"the census trace: {n_act} device activities, {span:.3f} ms from "

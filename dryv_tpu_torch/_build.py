@@ -33,6 +33,7 @@ ENTRIES = {
     "dt_intra_wavefront": "pppppppppppppiii",
     "dt_deblock": "pppppiii",
     "dt_inter_mc": "p" * 14 + "i" * 10,
+    "dt_peer_copy": "ppi",
 }
 
 _lib = None
@@ -82,8 +83,22 @@ def lib():
                            for k in kinds] + [ctypes.c_void_p]
         handle.dt_error_string.restype = ctypes.c_char_p
         handle.dt_error_string.argtypes = [ctypes.c_int]
+        handle.dt_enable_peer_access.restype = ctypes.c_int
+        handle.dt_enable_peer_access.argtypes = [ctypes.c_int, ctypes.c_int]
         _lib = handle
     return _lib
+
+
+def _raise_on(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: "
+                           f"{lib().dt_error_string(rc).decode()}")
+
+
+def enable_peer_access(dev: int, peer: int):
+    """Let card `dev` reach card `peer`'s memory directly, or raise."""
+    _raise_on("dt_enable_peer_access",
+              lib().dt_enable_peer_access(int(dev), int(peer)))
 
 
 def check_cuda(*tensors):
@@ -112,6 +127,4 @@ def call(name: str, *args):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(h, name)(*cargs, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: "
-                           f"{h.dt_error_string(rc).decode()}")
+    _raise_on(name, rc)

@@ -3,9 +3,11 @@ a mesh of torch devices driven by one process, frame-parallel GOP decode
 over its "gop" axis, band-parallel intra reconstruction with halo
 exchange (kernel B2b) over its "band" axis, and banded P recon
 (reference-row aprons between bands, kernel B4).  Each path's device
-work replays as one captured CUDA graph per static key (``STEPS``, the
-counterpart of the JAX package's ``jax.jit(shard_map(...))``) when its
-slots share one device; ``graph=False`` enqueues it op by op."""
+work is one captured step per static key (``STEPS``, the counterpart of
+the JAX package's ``jax.jit(shard_map(...))``): one CUDA graph for each
+group of its slots on one device (a card), halos and aprons copied card
+to card between them; ``graph=False`` enqueues the same parts op by
+op."""
 from __future__ import annotations
 
 import numpy as np
@@ -49,8 +51,9 @@ def dryrun_multichip(n_devices: int, devices=None, stream: bytes = None,
     sharded over the "band" axis, and over the 2-D mesh, and every frame
     of each must equal ``dryv_tpu.native.full.decode_annexb_native``
     (the original checks shapes only).  The paths take their default,
-    graphed routes.  `devices` as for ``make_mesh``,
-    which may repeat one device.  Raises on any difference; returns
+    graphed routes, a graph per card.  `devices` as for ``make_mesh``,
+    which may repeat devices (``["cuda:0"] * 8``, or four cards twice
+    for gop x band = 2 x 4).  Raises on any difference; returns
     {"gop", "band", "frames"}."""
     from ..decoder import DecodedFrame
     from ..native.full import decode_annexb_native

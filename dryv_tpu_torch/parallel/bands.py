@@ -8,11 +8,13 @@ rows to band b + 1, whose first MB row reads them as its above,
 above-right and corner aprons at step t + 1.  Each band's slot runs on a
 CUDA stream of its own; the halo copy is ordered by a CUDA event that the
 next band's stream waits on before its B2b launch (its stage A goes
-ahead), so on one card the bands overlap and on several the copy goes
-peer to peer.  On one card the whole pipeline, streams, events and
-copies included, replays as one captured CUDA graph per key.  Intra
-without the in-loop filter: filtering across a band boundary needs a
-back-edge fixup, as the JAX version says.
+ahead), so on one card the bands overlap.  Each group of bands on one
+device (``mesh.slot_groups``) replays as one captured CUDA graph, streams,
+events and copies included; a halo that crosses from one group to the
+next is copied card to card inside the sending group's graph into a
+static buffer of the receiving group, and ordered by an external event.
+Intra without the in-loop filter: filtering across a band boundary needs
+a back-edge fixup, as the JAX version says.
 
 ``make_banded_p_recon_fn`` is the banded P recon: each band receives an
 apron of reference rows from its neighbours and runs motion compensation
@@ -25,13 +27,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..graphs import Split
 from ..kernels.inter import mc_frame
 from ..kernels.transform import stage_a_residuals
 from ..kernels.wavefront import intra_recon, recon_inputs
 from ..pipeline import tables_for
 from ..syntax import stack_frames, syntax_tensors
-from .mesh import (fork_streams, join_streams, on_stream, run_eager,
-                   run_step, slot_streams)
+from .mesh import (enable_peers, fork_streams, join_streams, on_stream,
+                   order_after, peer_copy, run_eager, run_step, slot_groups,
+                   slot_streams, step_key)
 
 
 @lru_cache(maxsize=None)
@@ -81,22 +85,23 @@ def make_banded_gop_fn(mesh, mb_w: int, mb_h: int, F: int, Fi: int = 0,
     16*mb_h, 16*mb_w], cb, cr) uint8 planes, cropped to the picture's MB
     rows: numpy, or with device_out tensors on the first band's device,
     ordered after the run on that device's current stream.  With `graph`
-    (the default) and every slot on one device, a call copies each
-    band's syntax into the static inputs of its key's step (slot
-    devices, axis, mb_w, mb_h, F, Fi, the syntax tensors' names) and
-    replays the whole pipeline, every band's stream with its halo copies,
-    as one CUDA graph (``mesh.STEPS``), the counterpart of the JAX
-    version's ``jax.jit(shard_map(...))``; otherwise the same function
-    is enqueued op by op on the inputs copied to the bands' devices,
-    counted in ``STEPS.eager``.  ``run.graphed`` says which."""
+    (the default) a call copies each band's syntax into the static inputs
+    of its key's step (slot devices, axis, mb_w, mb_h, F, Fi, the syntax
+    tensors' names, and the slot groups when there are several) and
+    replays the pipeline of each group of bands on one device, every
+    band's stream with its halo copies, as a CUDA graph of its own
+    (``mesh.STEPS``), the counterpart of the JAX version's
+    ``jax.jit(shard_map(...))``; ``graph=False`` enqueues the same parts
+    op by op on the inputs copied to the bands' devices, counted in
+    ``STEPS.eager``.  ``run.graphed`` says which."""
     return BandedGop(mesh, mb_w, mb_h, F, Fi, axis, graph)
 
 
 class BandedGop:
     """``make_banded_gop_fn``'s run.  ``step_args`` gives a call's key,
     the step's maker and its host inputs; a call replays the step, or
-    runs the maker's function op by op on the inputs copied to the
-    bands' devices."""
+    runs the maker's parts op by op on the inputs copied to the bands'
+    devices."""
 
     def __init__(self, mesh, mb_w, mb_h, F, Fi, axis, graph=True):
         self.devs = mesh.axis_devices(axis)
@@ -109,23 +114,23 @@ class BandedGop:
         self.mb_w, self.mb_h, self.F, self.Fi = mb_w, mb_h, F, Fi
         self.axis = axis
         self.tabs = [tables_for(d) for d in self.devs]
-        self.device = mesh.one_device(axis)
-        self.graphed = graph and self.device is not None
+        self.graphed = graph
 
     def __call__(self, fs_list, device_out=False):
         key, make, xs = self.step_args(fs_list)
         if self.graphed:
-            planes = run_step(key, make, xs, self.device)
+            planes = run_step(key, make, xs)
         else:
-            planes = run_eager(make(), xs, self.devs)
+            planes = run_eager(make(), xs)
         return planes if device_out else tuple(p.cpu().numpy()
                                                for p in planes)
 
     def step_args(self, fs_list):
         """(key, maker, inputs) of this call's step: the inputs are each
         band's syntax tensors on the host, MB rows padded with zero
-        syntax to B * rows, in the key's name order; the maker's function
-        takes them on the bands' devices and runs ``reconstruct``."""
+        syntax to B * rows, in the key's name order; the maker's ``Split``
+        takes them on the bands' devices and runs ``reconstruct`` on each
+        group of bands."""
         F, B, n_local = self.F, self.B, self.rows * self.mb_w
         if len(fs_list) != F:
             raise ValueError(f"expected {F} pictures, got {len(fs_list)}")
@@ -137,70 +142,140 @@ class BandedGop:
                                  + a.shape[2:], a.dtype)], axis=1)
         s = syntax_tensors(stacked, "cpu")
         names = tuple(sorted(s))
-        k = len(names)
         xs = [s[name][:, b * n_local:(b + 1) * n_local]
               for b in range(B) for name in names]
+        groups = slot_groups(self.devs)
+        return (step_key((tuple(self.devs), self.axis, self.mb_w, self.mb_h,
+                          F, self.Fi, names), groups),
+                lambda: self.split(names, groups), xs)
 
-        def make():
-            streams = slot_streams(self.devs)
+    def split(self, names, groups):
+        """The step's parts, one per group of bands: each runs
+        ``reconstruct`` on its bands; a group below another takes its
+        first band's halos from static buffers that the group above
+        fills (``_Halos``).  The groups' planes meet on the first band's
+        device after the parts, cropped."""
+        k, devs = len(names), self.devs
+        streams = slot_streams(devs)
+        halos = _Halos(devs, groups, self.F // self.Fi, self.Fi, self.mb_w)
+
+        def part(g):
+            recv = halos.recv(g.start) if g.start else None
+            send = halos.send(g.stop) if g.stop < self.B else None
             return lambda *xs: self.reconstruct(
-                [dict(zip(names, xs[b * k:(b + 1) * k]))
-                 for b in range(B)], streams)
+                [dict(zip(names, xs[j * k:(j + 1) * k]))
+                 for j in range(len(g))], g.start,
+                [streams[i] for i in g], recv, send)
 
-        return ((tuple(self.devs), self.axis, self.mb_w, self.mb_h, F,
-                 self.Fi, names), make, xs)
+        return Split([(devs[g.start], k * len(g), part(g)) for g in groups],
+                     after=lambda outs: self.crop(tuple(
+                         torch.cat([o[p].to(devs[0]) for o in outs], 1)
+                         for p in range(3))))
 
-    def reconstruct(self, syn, streams):
-        """The pipeline over each band's syntax tensors on its device, on
-        the slot `streams`, forked from the current stream and joined to
-        it again; returns the cropped planes on the first band's
-        device."""
-        devs, B, Fi = self.devs, self.B, self.Fi
+    def crop(self, planes):
+        """(y, cb, cr) cut to the picture's MB rows."""
+        return tuple(p[:, :(16 if i == 0 else 8) * self.mb_h]
+                     for i, p in enumerate(planes))
+
+    def reconstruct(self, syn, lo, streams, recv=None, send=None):
+        """The pipeline over bands lo, lo + 1, ... (syn: each one's syntax
+        tensors on its device), on the slot `streams`, forked from the
+        current stream and joined to it again.  The first band's halo of
+        group g is ``recv(g)`` -> (halo, event to wait for), or a zero
+        halo for band 0, as the JAX carry; the last band hands group g's
+        planes to ``send(g, y, cb, cr)`` when a band lies below it.
+        Returns the bands' planes stacked along their rows on the first
+        band's device, uncropped."""
+        nb, Fi = len(syn), self.Fi
+        devs = self.devs[lo:lo + nb]
         mb_w, rows, G = self.mb_w, self.rows, self.F // Fi
         fork_streams(devs, streams)
-        with on_stream(streams[0]):
-            # band 0 has no band above: a zero halo, as the JAX carry
-            halo = [(torch.zeros((Fi, 16 * mb_w), dtype=torch.uint8,
-                                 device=devs[0]),
-                     torch.zeros((Fi, 2, 8 * mb_w), dtype=torch.uint8,
-                                 device=devs[0]))] + [None] * (B - 1)
-        ready = [None] * B
-        planes = [[] for _ in range(B)]
-        for t in range(G + B - 1):
+        halo, ready = [None] * nb, [None] * nb
+        if recv is None:
+            with on_stream(streams[0]):
+                halo[0] = (torch.zeros((Fi, 16 * mb_w), dtype=torch.uint8,
+                                       device=devs[0]),
+                           torch.zeros((Fi, 2, 8 * mb_w), dtype=torch.uint8,
+                                       device=devs[0]))
+        planes = [[] for _ in range(nb)]
+        for t in range(G + nb - 1):
             sent = {}
-            for b in range(max(0, t - G + 1), min(B, t + 1)):
+            for b in range(max(0, t - G + 1), min(nb, t + 1)):
                 g = t - b
                 with on_stream(streams[b]):
                     sg = {k: v[g * Fi:(g + 1) * Fi]
                           for k, v in syn[b].items()}
                     ins = recon_inputs(sg, *stage_a_residuals(
-                        sg, self.tabs[b]))
+                        sg, self.tabs[lo + b]))
+                    if b == 0 and recv is not None:
+                        halo[0], ready[0] = recv(g)
                     # only B2b reads the halo: stage A runs before the
                     # wait, beside the band above's work
                     if ready[b] is not None:
                         streams[b].wait_event(ready[b])
-                    y, cb, cr = intra_recon(*ins, self.tabs[b], mb_w, rows,
-                                            halo=halo[b])
+                    y, cb, cr = intra_recon(*ins, self.tabs[lo + b], mb_w,
+                                            rows, halo=halo[b])
                     planes[b].append((y, cb, cr))
-                    if b + 1 < B:
+                    if b + 1 < nb:
                         sent[b + 1] = _send(y, cb, cr, devs[b + 1],
                                             streams[b], streams[b + 1])
+                    elif send is not None:
+                        send(g, y, cb, cr)
             for b, (h, ev) in sent.items():
                 halo[b], ready[b] = h, ev
         join_streams(devs, streams)
         out = []
         for p in range(3):
             parts = []
-            for b in range(B):
+            for b in range(nb):
                 for pl in planes[b]:
                     if streams[b] is not None:
                         pl[p].record_stream(
                             torch.cuda.current_stream(devs[b]))
                 parts.append(torch.cat([pl[p] for pl in planes[b]])
                              .to(devs[0]))
-            out.append(torch.cat(parts, 1)[:, :(16 if p == 0 else 8)
-                                           * self.mb_h])
+            out.append(torch.cat(parts, 1))
         return tuple(out)
+
+
+class _Halos:
+    """The halos that cross from one group of bands to the next: for the
+    first band r of every group but the first, one static buffer per
+    frame group g on r's device, (bottom luma row [Fi, W], bottom chroma
+    rows [Fi, 2, W/2]) of band r - 1, made with the step, and on CUDA
+    the external event that the sending group's graph records after its
+    copy and the receiving group's graph waits on before B2b.  One
+    buffer and event per frame group: each is written once a call."""
+
+    def __init__(self, devs, groups, G, Fi, mb_w):
+        self.bufs, self.events = {}, {}
+        for grp in groups[1:]:
+            d = devs[grp.start]
+            self.bufs[grp.start] = [
+                (torch.empty((Fi, 16 * mb_w), dtype=torch.uint8, device=d),
+                 torch.empty((Fi, 2, 8 * mb_w), dtype=torch.uint8,
+                             device=d)) for _ in range(G)]
+            self.events[grp.start] = [
+                torch.cuda.Event(external=True) if d.type == "cuda"
+                else None for _ in range(G)]
+        enable_peers(devs)
+
+    def recv(self, r):
+        """Band r's halo of group g and its event: r's recv(g)."""
+        return lambda g: (self.bufs[r][g], self.events[r][g])
+
+    def send(self, r):
+        """send(g, y, cb, cr) of band r - 1: its bottom rows card to card
+        into band r's buffers of group g, on the current stream of the
+        sending band, then the event."""
+        def fn(g, y, cb, cr):
+            hy, hc = self.bufs[r][g]
+            peer_copy(hy, y[:, -1].contiguous())
+            peer_copy(hc, torch.stack([cb[:, -1], cr[:, -1]], 1))
+            ev = self.events[r][g]
+            if ev is not None:
+                ev.record(torch.cuda.current_stream(y.device))
+        return fn
 
 
 def _copy(t, to, src, dst):
@@ -236,7 +311,8 @@ def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band",
     diagonal; here it is ``make_banded_gop_fn`` with F = Fi = 1, which
     gives the same planes from one halo per band boundary.  On a 2-D
     mesh it uses the band axis, as the original does.  `graph` and
-    ``run.graphed`` are ``make_banded_gop_fn``'s."""
+    ``run.graphed`` are ``make_banded_gop_fn``'s; ``run.step_args(fs)``
+    gives a call's key, the step's maker and its host inputs."""
     run_gop = make_banded_gop_fn(mesh, mb_w, mb_h, 1, Fi=1, axis=axis,
                                  graph=graph)
 
@@ -244,6 +320,7 @@ def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band",
         return tuple(p[0] for p in run_gop([fs], device_out))
 
     run.graphed = run_gop.graphed
+    run.step_args = lambda fs: run_gop.step_args([fs])
     return run
 
 
@@ -260,14 +337,16 @@ def _hop(t, to, src, dst):
     return out
 
 
-def _extend(planes, a, total, devs, streams):
+def _extend(planes, a, total, devs, streams, first=0, keep=None):
     """Each band's extended plane: band b's rows with `a` rows above and
     below, rows outside the picture replicating its edge rows, so that a
     clamp inside the extended plane is the global clamp.  planes[b] is
-    band b's [rows, W] on devs[b]; the apron rows come from the
-    neighbours in ceil(a / rows) chained hops (each band forwards what it
-    received), each ordered by an event on the receiving slot's stream,
-    as ``make_banded_gop_fn`` orders its halos."""
+    band first + b's [rows, W] on devs[b] (of `total` rows in all); the
+    apron rows come from the neighbours in ceil(a / rows) chained hops
+    (each band forwards what it received), each ordered by an event on
+    the receiving slot's stream, as ``make_banded_gop_fn`` orders its
+    halos.  Returns the extended planes of the bands in `keep` (default:
+    all)."""
     B = len(planes)
     rows = planes[0].shape[0]
     above = [[] for _ in range(B)]
@@ -286,11 +365,12 @@ def _extend(planes, a, total, devs, streams):
                 below[b - 1].append(nxt_u[b - 1])
         cur_d, cur_u = nxt_d, nxt_u
     out = []
-    for b in range(B):
+    for b in range(B) if keep is None else keep:
         with on_stream(streams[b]):
             rows_b = torch.cat(above[b] + [planes[b]] + below[b])
-            start = (b - len(above[b])) * rows
-            g = torch.arange(rows + 2 * a, device=devs[b]) + b * rows - a
+            start = (first + b - len(above[b])) * rows
+            g = (torch.arange(rows + 2 * a, device=devs[b])
+                 + (first + b) * rows - a)
             out.append(rows_b[g.clamp(0, total - 1) - start])
     return out
 
@@ -311,22 +391,26 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
     own slot's stream.  The vertical reach of the vectors (integer rows
     plus the 6-tap margin) must stay within the apron: run() asserts it,
     as the JAX version does.  Planes come back numpy, or with device_out
-    tensors on the first band's device.  With `graph` (the default) and
-    every slot on one device, each band's reference rows, vectors, slots
-    and residuals are copied into the static inputs of the key's step
-    (slot devices, axis, mb_w, mb_h, apron) and the apron hops, B4, the
-    residual add and the assembly replay as one CUDA graph
-    (``mesh.STEPS``); otherwise the same function is enqueued op by op on
-    the inputs copied to the bands' devices, counted in ``STEPS.eager``.
-    ``run.graphed`` says which; ``run.step_args(*args)`` gives a call's
-    key, the step's maker and its host inputs."""
+    tensors on the first band's device.  With `graph` (the default) each
+    band's reference rows, vectors, slots and residuals are copied into
+    the static inputs of the key's step (slot devices, axis, mb_w, mb_h,
+    apron, and the slot groups when there are several), and each group
+    of bands on one device replays the apron hops among its bands, B4
+    and the residual add as a CUDA graph of its own (``mesh.STEPS``).  A
+    group takes the reference rows of the bands around it that its
+    aprons reach (ghost bands) card to card before the replays, and the
+    groups' planes meet on the first band's device after them.
+    ``graph=False`` enqueues the same parts op by op on the inputs copied
+    to the bands' devices, counted in ``STEPS.eager``.  ``run.graphed``
+    says which; ``run.step_args(*args)`` gives a call's key, the step's
+    maker and its host inputs."""
     devs = mesh.axis_devices(axis)
     B = len(devs)
     if mb_h % B:
         raise ValueError("bands must split MB rows evenly")
     hb = mb_h // B
     A = apron
-    one = mesh.one_device(axis)
+    groups = slot_groups(devs)
 
     def step_args(ref_y, ref_cb, ref_cr, mv, rs, y_resid, c_resid):
         """(key, maker, inputs) of a call's step, after the reach check:
@@ -349,37 +433,83 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
             xs += [torch.from_numpy(a[b * k:(b + 1) * k])
                    for a, k in ((mv16, n4l), (slot, n4l), (yr, nl),
                                 (cr_, nl))]
-        return ((tuple(devs), axis, mb_w, mb_h, A),
-                lambda: _p_recon_fn(devs, mb_w, hb, A), xs)
+        return (step_key((tuple(devs), axis, mb_w, mb_h, A), groups),
+                lambda: _p_recon_split(devs, groups, mb_w, hb, A), xs)
 
     def run(*args, device_out=False):
         key, make, xs = step_args(*args)
         if run.graphed:
-            planes = run_step(key, make, xs, one)
+            planes = run_step(key, make, xs)
         else:
-            planes = run_eager(make(), xs, devs)
+            planes = run_eager(make(), xs)
         return planes if device_out else tuple(p.cpu().numpy()
                                                for p in planes)
 
     run.step_args = step_args
-    run.graphed = graph and one is not None
+    run.graphed = graph
     return run
 
 
-def _p_recon_fn(devs, mb_w, hb, A):
-    """The step's function, captured or run op by op: fn(*each band's
-    ref_y, ref_cb, ref_cr rows, mv, slots, y_resid, c_resid on its device)
-    -> (y, cb, cr) on devs[0].  The slot streams fork from the current
-    stream; the apron hops, B4 and the residual add run on each band's
-    stream, and the planes are assembled on devs[0] after the join."""
-    streams = slot_streams(devs)
+def _p_recon_split(devs, groups, mb_w, hb, A):
+    """Banded P recon's step as one part per group of bands.  A group's
+    ghost bands, the ceil(A / rows) bands on each side of it that its
+    aprons reach, are static buffers on its device, filled card to card
+    from their owners' static inputs before the parts run (``before``);
+    the groups' planes meet on devs[0] after them."""
     B = len(devs)
+    streams = slot_streams(devs)
+    enable_peers(devs)
+    m = -(-A // (16 * hb))
+    shapes = [((16 * hb, 16 * mb_w), 0), ((8 * hb, 8 * mb_w), 1),
+              ((8 * hb, 8 * mb_w), 2)]
+    ghosts = []          # per group: ([(band, planes)] above, below)
+    for g in groups:
+        d = devs[g.start]
+        ghosts.append(tuple(
+            [(b, [torch.empty(shp, dtype=torch.uint8, device=d)
+                  for shp, _ in shapes]) for b in bands]
+            for bands in (range(max(0, g.start - m), g.start),
+                          range(g.stop, min(B, g.stop + m)))))
+
+    def before(ins):
+        for up, down in ghosts:
+            for b, bufs in up + down:
+                for dst, (_, p) in zip(bufs, shapes):
+                    peer_copy(dst, ins[7 * b + p])
+        order_after([devs[g.start] for g in groups],
+                    [devs[g.start] for g in groups])
+
+    parts = [(devs[g.start], 7 * len(g),
+              _p_recon_fn([devs[i] for i in g], [streams[i] for i in g],
+                          mb_w, hb, A, B, g.start,
+                          ([p for _, p in up], [p for _, p in down])))
+             for g, (up, down) in zip(groups, ghosts)]
+    return Split(parts, before=before, after=lambda outs: tuple(
+        torch.cat([o[p].to(devs[0]) for o in outs]) for p in range(3)))
+
+
+def _p_recon_fn(devs, streams, mb_w, hb, A, B, first=0, ghosts=([], [])):
+    """A part's function, captured or run op by op: fn(*each of its
+    bands' ref_y, ref_cb, ref_cr rows, mv, slots, y_resid, c_resid on its
+    device) -> (y, cb, cr) of those bands stacked on devs[0].  Its bands
+    are bands first, first + 1, ... of B; ghosts: the (y, cb, cr) rows of
+    the bands above and below them that the aprons reach, on devs[0] and
+    devs[-1].  The slot streams fork from the current stream; the apron
+    hops, B4 and the residual add run on each band's stream, and the
+    planes are stacked after the join."""
+    nb = len(devs)
+    up, down = ghosts
+    gdevs = [devs[0]] * len(up) + list(devs) + [devs[-1]] * len(down)
+    gstreams = ([streams[0]] * len(up) + list(streams)
+                + [streams[-1]] * len(down))
+    keep = range(len(up), len(up) + nb)
 
     def fn(*xs):
         fork_streams(devs, streams)
-        band = [xs[7 * b:7 * (b + 1)] for b in range(B)]
-        ext = [_extend([bd[p] for bd in band], a,
-                       sum(bd[p].shape[0] for bd in band), devs, streams)
+        band = [xs[7 * b:7 * (b + 1)] for b in range(nb)]
+        ext = [_extend([u[p] for u in up] + [bd[p] for bd in band]
+                       + [d[p] for d in down], a, B * band[0][p].shape[0],
+                       gdevs, gstreams, first - len(up), keep)
                for p, a in ((0, A), (1, A // 2), (2, A // 2))]
         parts = []
         for b, st in enumerate(streams):
@@ -402,11 +532,11 @@ def _p_recon_fn(devs, mb_w, hb, A):
         join_streams(devs, streams)
         out = []
         for p in range(3):
-            for b in range(B):
+            for b in range(nb):
                 if streams[b] is not None:
                     parts[b][p].record_stream(
                         torch.cuda.current_stream(devs[b]))
             out.append(torch.cat([parts[b][p].to(devs[0])
-                                  for b in range(B)]))
+                                  for b in range(nb)]))
         return tuple(out)
     return fn

@@ -5,10 +5,11 @@ from __future__ import annotations
 
 import torch
 
+from ..graphs import Split
 from ..pipeline import recon_syntax, tables_for
 from ..syntax import stack_frames, syntax_tensors
 from .mesh import (fork_streams, join_streams, on_stream, run_eager,
-                   run_step, slot_streams)
+                   run_step, slot_groups, slot_streams, step_key)
 
 
 def decode_gop_sharded(fs_list, mesh, axis: str = "gop",
@@ -24,14 +25,24 @@ def decode_gop_sharded(fs_list, mesh, axis: str = "gop",
     F = F_local, on its own CUDA stream.  Flat scaling lists, no in-loop
     filter, as there.  `use_pallas` is kept for the same signature: both
     values take one route, the kernel on CUDA devices and its plain
-    version on the CPU.  With `graph` (the default) and every slot on
-    one device, the slots' work replays as one captured CUDA graph per
-    key (slot devices, axis, mb_w, mb_h, F_local, the syntax tensors'
-    names; ``mesh.STEPS``), the counterpart of the JAX version's
-    ``jax.jit(shard_map(...))``; otherwise it is enqueued op by op and
-    counted in ``STEPS.eager``: the same function on the same host
-    inputs, copied to the slots' devices."""
+    version on the CPU.  With `graph` (the default) each group of slots
+    on one device (``mesh.slot_groups``) replays as a CUDA graph of its
+    own, one step per key (slot devices, axis, mb_w, mb_h, F_local, the
+    syntax tensors' names, and the groups when there are several;
+    ``mesh.STEPS``), the counterpart of the JAX version's
+    ``jax.jit(shard_map(...))``; the groups' planes meet on the first
+    slot's device after the replays.  ``graph=False`` runs the same parts
+    op by op, counted in ``STEPS.eager``."""
     del use_pallas
+    key, make, xs = step_args(fs_list, mesh, axis)
+    planes = run_step(key, make, xs) if graph else run_eager(make(), xs)
+    return tuple(p.cpu().numpy()[:len(fs_list)] for p in planes)
+
+
+def step_args(fs_list, mesh, axis: str = "gop"):
+    """(key, maker, inputs) of ``decode_gop_sharded``'s step: the inputs
+    are each slot's syntax tensors on the host, the GOP padded with its
+    last picture; the maker's ``Split`` has one part per slot group."""
     if not fs_list:
         raise ValueError("empty GOP")
     mb_w, mb_h = fs_list[0].mb_w, fs_list[0].mb_h
@@ -43,21 +54,26 @@ def decode_gop_sharded(fs_list, mesh, axis: str = "gop",
     names = tuple(sorted(s))
     xs = [s[k][i * Fl:(i + 1) * Fl] for i in range(len(devs))
           for k in names]
-    one = mesh.one_device(axis)
-    if graph and one is not None:
-        planes = run_step((tuple(devs), axis, mb_w, mb_h, Fl, names),
-                          lambda: _gop_fn(devs, mb_w, mb_h, names), xs, one)
-    else:
-        planes = run_eager(_gop_fn(devs, mb_w, mb_h, names), xs, devs)
-    return tuple(p.cpu().numpy()[:len(fs_list)] for p in planes)
+    groups = slot_groups(devs)
+
+    def make():
+        k = len(names)
+        streams = slot_streams(devs)
+        parts = [(devs[g[0]], k * len(g),
+                  _gop_fn([devs[i] for i in g], [streams[i] for i in g],
+                          mb_w, mb_h, names)) for g in groups]
+        return Split(parts, after=lambda outs: tuple(
+            torch.cat([o[p].to(devs[0]) for o in outs]) for p in range(3)))
+
+    return (step_key((tuple(devs), axis, mb_w, mb_h, Fl, names), groups),
+            make, xs)
 
 
-def _gop_fn(devs, mb_w, mb_h, names):
-    """The step's function, captured or run op by op: fn(*each slot's
+def _gop_fn(devs, streams, mb_w, mb_h, names):
+    """A part's function, captured or run op by op: fn(*each slot's
     syntax tensors in `names` order) -> (y, cb, cr) [F_local * slots, ...]
-    on devs[0], each slot's stage A and B2 on a stream of its own, forked
-    from the current stream and joined to it again."""
-    streams = slot_streams(devs)
+    on devs[0], each slot's stage A and B2 on its stream of `streams`,
+    forked from the current stream and joined to it again."""
     tabs = [tables_for(d) for d in devs]
     k = len(names)
 

@@ -12,10 +12,15 @@ virtual CPU devices do.
 The JAX package compiles each sharded path once per static shape, a
 ``jax.jit`` of a ``shard_map``.  The port's counterpart is ``STEPS``: a
 sharded path's device work, every slot's stream with its forks, joins
-and halo copies, captured as one CUDA graph per static key and replayed
-(``graphs.Step``).  A graph captures one device's work, so a mesh whose
-slots span several devices runs op by op; ``STEPS.eager`` counts those
-calls, and the calls made with ``graph=False``.
+and halo copies, captured per static key and replayed (``graphs.Step``).
+A graph captures one device's work, so a path cuts a mesh axis's slots
+into groups (``slot_groups``: runs of consecutive slots on one device)
+and its step into one part per group (``graphs.Split``), each captured
+as a graph of its own on its device; the copies between groups go card
+to card (``peer_copy``), inside the sending group's graph or between the
+replays.  One device gives one group and one graph.  ``graph=False``
+runs the same parts op by op (``run_eager``), counted in
+``STEPS.eager``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import threading
 import numpy as np
 import torch
 
-from ..graphs import StepCache
+from .. import _build
+from ..graphs import Split, StepCache
 
 
 class Mesh:
@@ -49,12 +55,6 @@ class Mesh:
         idx = [0] * self.devices.ndim
         idx[i] = slice(None)
         return list(self.devices[tuple(idx)])
-
-    def one_device(self, axis: str):
-        """The device of every slot along `axis`, or None when the slots
-        span several devices (their work cannot be one CUDA graph)."""
-        devs = set(self.axis_devices(axis))
-        return devs.pop() if len(devs) == 1 else None
 
 
 def make_mesh(axis_sizes: dict | None = None, devices=None) -> Mesh:
@@ -83,6 +83,79 @@ def _indexed(dev: torch.device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _slot_group(i: int, dev: torch.device):
+    """The group of slot i on `dev`; neighbouring slots of one group
+    share a part of a step and its graph.  By device: the private seam
+    through which the tests and chip_smoke.py cut one device's slots into
+    several groups."""
+    return dev
+
+
+def slot_groups(devices) -> list:
+    """The slots of a mesh axis as ranges of consecutive slots in one
+    group (``_slot_group``) and so on one device; a device that comes back
+    after another starts a new group, so an edge between neighbouring
+    slots runs from a group to the next."""
+    keys = [_slot_group(i, d) for i, d in enumerate(devices)]
+    starts = [i for i in range(len(keys)) if i == 0 or keys[i] != keys[i - 1]]
+    return [range(a, b) for a, b in zip(starts, starts[1:] + [len(keys)])]
+
+
+def step_key(key, groups) -> tuple:
+    """`key` of a path's step, with its slot groups when it has several
+    (the grouping decides the step's parts)."""
+    if len(groups) == 1:
+        return key
+    return key + (tuple((g.start, g.stop) for g in groups),)
+
+
+_PEERS = set()    # (device, peer) pairs whose direct access is on
+
+
+def enable_peers(devices) -> None:
+    """Direct access between every ordered pair of the CUDA `devices`
+    that supports it (once a pair per process), before a capture copies
+    between them; a pair without it copies through the host, which a
+    capture may refuse (it then raises)."""
+    idx = sorted({d.index for d in devices if d.type == "cuda"})
+    for a in idx:
+        for b in idx:
+            if a != b and (a, b) not in _PEERS and \
+                    torch.cuda.can_device_access_peer(a, b):
+                _build.enable_peer_access(a, b)
+                _PEERS.add((a, b))
+
+
+def peer_copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst[...] = src, card to card on the current stream of src's card
+    (raw ``cudaMemcpyAsync``, C entry ``dt_peer_copy``: it waits for no
+    stream of dst's card, so a capture on src's card can hold it; the
+    caller orders dst's readers by an event); on the CPU a plain copy."""
+    if src.device.type != "cuda":
+        dst.copy_(src)
+        return
+    if dst.dtype != src.dtype or dst.shape != src.shape:
+        raise ValueError(f"peer_copy: {tuple(src.shape)} {src.dtype} into "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    if not (src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError("peer_copy: tensors must be contiguous")
+    _build.call("dt_peer_copy", src, dst, src.numel() * src.element_size())
+
+
+def order_after(src_devices, dst_devices) -> None:
+    """The current stream of each of `dst_devices` waits for the work
+    already enqueued on the current stream of each of `src_devices`
+    (CUDA; nothing on the CPU)."""
+    for s in src_devices:
+        if s.type != "cuda":
+            continue
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(s))
+        for d in dst_devices:
+            if d != s:
+                torch.cuda.current_stream(d).wait_event(ev)
 
 
 _LOCAL = threading.local()    # .streams: (device, slot index) -> stream
@@ -143,22 +216,21 @@ class MeshSteps(StepCache):
 STEPS = MeshSteps(max_keys=8)
 
 
-def run_step(key, make_fn, xs, device):
-    """Replay the step of `key` in ``STEPS`` (made by ``make_fn()`` at
-    its first use) on inputs `xs` (host or device tensors); returns the
-    clones of its outputs."""
-    with STEPS.hold(key, make_fn, xs, device) as step:
+def run_step(key, make, xs):
+    """Replay the step of `key` in ``STEPS`` (``make()``, a ``Split``, at
+    its first use) on inputs `xs` (host or device tensors, in the parts'
+    order); returns its results."""
+    with STEPS.hold(key, make, xs) as step:
         step.load(*xs)
         return step()
 
 
-def run_eager(fn, xs, devices):
-    """The op-by-op route of a step's function: counts the call in
-    ``STEPS.eager``, copies each slot's equal share of the host inputs
-    `xs` (slot order, as ``run_step`` takes them) to its device, on that
-    device's current stream, from which ``fn``'s slot streams fork, and
-    returns fn(*copies)."""
+def run_eager(split, xs):
+    """The op-by-op route of a step (``graph=False``): counts the call in
+    ``STEPS.eager``, copies the host inputs `xs` to their parts' devices
+    (on each device's current stream, from which the parts' slot streams
+    fork) and runs the split there."""
     with STEPS.lock:
         STEPS.eager += 1
-    k = len(xs) // len(devices)
-    return fn(*(x.to(devices[i // k]) for i, x in enumerate(xs)))
+    devs = [d for d, n, _ in split.parts for _ in range(n)]
+    return split(*(x.to(d) for x, d in zip(xs, devs)))

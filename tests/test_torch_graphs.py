@@ -95,8 +95,8 @@ def test_a_key_seen_again_replays_the_step_made_once(p_chain):
         [(0, 0, 1), (1, 1, 1), (1, 2, 3)]
     assert len(p_chain["made"]) == len(steps) == 3
     assert p_chain["steps"].stats() == {
-        "keys": 3, "made": 3, "captured": 0, "capture_ms": 0.0,
-        "replays": 5}
+        "keys": 3, "made": 3, "captured": 0, "graphs": 0, "capture_ms": 0.0,
+        "replays": 5, "pool_mib": {}}
 
 
 def _intra_stream(n_pics, kinds=("i8", "i4", "i16")):
@@ -204,7 +204,8 @@ def test_cache_releases_the_least_recently_used_step():
     assert list(s.steps) == ["a", "c"]
     assert held["b"].inputs == [] and held["b"].outputs is None
     assert s.stats() == {"keys": 2, "made": 3, "captured": 0,
-                         "capture_ms": 0.0, "replays": 3}
+                         "graphs": 0, "capture_ms": 0.0, "replays": 3,
+                         "pool_mib": {}}
 
 
 def test_threads_take_turns_at_a_step():

@@ -71,7 +71,8 @@ def test_banded_gop_graphed(steps, name, n_bands, Fi):
                                     interpret=True)([fs] * F)
     _assert_planes(got, eager, ref, golden)
     assert steps.stats() == {"keys": 1, "made": 1, "captured": 0,
-                             "capture_ms": 0.0, "replays": 1, "eager": 1}
+                             "graphs": 0, "capture_ms": 0.0, "replays": 1,
+                             "pool_mib": {}, "eager": 1}
 
 
 @pytest.mark.parametrize("axes", [{"band": 2}, {"band": 3},
@@ -188,24 +189,32 @@ def test_two_calls_of_one_key_return_distinct_correct_tensors(steps):
 
 def test_a_mesh_over_several_devices_runs_eager_and_counts(steps,
                                                            monkeypatch):
-    """Slots on several devices cannot be one CUDA graph: every path
-    takes its eager route, the run objects say so in ``graphed``, and
-    each call counts in ``STEPS.eager``; the planes stay right."""
-    monkeypatch.setattr(tpar.Mesh, "one_device", lambda self, axis: None)
+    """Slots on several devices (here each slot a group of its own,
+    through the seam ``mesh._slot_group``, as each card of a mesh is):
+    with graph=False every path runs op by op, says so in ``graphed`` and
+    counts each call in ``STEPS.eager``; graphed, each path makes one
+    step of one part per group, counts nothing in ``STEPS.eager``, and
+    the planes stay right both ways."""
+    monkeypatch.setattr(tmesh, "_slot_group", lambda i, d: i)
     fs, golden = _fixture("mix_qp26")
     mesh = tpar.make_mesh({"gop": 2, "band": 2}, CPU8)
-    _assert_planes(tpar.decode_gop_sharded([fs] * 2, mesh), golden)
-    assert steps.stats()["eager"] == 1
-    run = tpar.make_banded_gop_fn(mesh, fs.mb_w, fs.mb_h, 2, Fi=1)
-    frame = tpar.make_banded_frame_fn(mesh, fs.mb_w, fs.mb_h)
-    pr = tpar.make_banded_p_recon_fn(mesh, 6, 8, apron=64)
-    assert not (run.graphed or frame.graphed or pr.graphed)
-    _assert_planes(run([fs] * 2), golden)
-    _assert_planes(frame(fs), golden)
     pic = _p_picture(6, 8, 3)
-    _assert_planes(pr(*pic), _unbanded_p(*pic, 6, 8))
-    assert steps.stats() == {"keys": 0, "made": 0, "captured": 0,
-                             "capture_ms": 0.0, "replays": 0, "eager": 4}
+    for graph in (False, True):
+        _assert_planes(tpar.decode_gop_sharded([fs] * 2, mesh, graph=graph),
+                       golden)
+        run = tpar.make_banded_gop_fn(mesh, fs.mb_w, fs.mb_h, 2, Fi=1,
+                                      graph=graph)
+        frame = tpar.make_banded_frame_fn(mesh, fs.mb_w, fs.mb_h,
+                                          graph=graph)
+        pr = tpar.make_banded_p_recon_fn(mesh, 6, 8, apron=64, graph=graph)
+        assert run.graphed == frame.graphed == pr.graphed == graph
+        _assert_planes(run([fs] * 2), golden)
+        _assert_planes(frame(fs), golden)
+        _assert_planes(pr(*pic), _unbanded_p(*pic, 6, 8))
+    assert steps.stats() == {"keys": 4, "made": 4, "captured": 0,
+                             "graphs": 0, "capture_ms": 0.0, "replays": 4,
+                             "pool_mib": {}, "eager": 4}
+    assert [len(s.split.parts) for s in steps.steps.values()] == [2] * 4
 
 
 @pytest.mark.parametrize("path,slots,Fi", [("gop", 2, 0), ("gop", 4, 0),
