@@ -135,6 +135,111 @@ def _round_cap(x, q):
     return max(q, (int(x) + q - 1) & ~(q - 1))
 
 
+class BlobStaging:
+    """The batched pipeline's host staging: `slots` blobs (pinned when
+    `pin`) of the packed wire for batches of F pictures, which the fused
+    C++ entropy + pack stage fills straight from the entropy arena.  A
+    slot is refilled only after the device copy that read it has
+    completed (its event in ``ev``, which the caller records).  The vals
+    stride W starts at 32 and grows (sticky, like the exc/ovf caps) when
+    the stream is dense enough that the 816-byte-per-MB overflow channel
+    would dominate the wire; ``caps`` is (W, ecap, ovcap) now."""
+
+    def __init__(self, F, npad, n, pin=False, slots=2):
+        self.F, self.npad, self.n, self.pin = F, npad, n, pin
+        self.caps = (32, 256, 64)
+        self.ev = [None] * slots
+        self.bufs = [self._alloc() for _ in range(slots)]
+
+    def _alloc(self):
+        blob, views = _alloc_blob(self.F, self.npad, self.n, *self.caps,
+                                  pin=self.pin)
+        views["cnt"] = np.zeros((self.F, self.npad), np.int32)
+        views["_blob"] = blob
+        return views
+
+    def drain(self):
+        for ev in self.ev:
+            if ev is not None:
+                ev.synchronize()
+
+    def _grow(self, caps):
+        """New blobs at `caps`, holding what the old ones held."""
+        self.drain()
+        W, ecap, ovcap = self.caps
+        self.caps = caps
+        for k, old in enumerate(self.bufs):
+            nv = self._alloc()
+            nv["bmp"][:] = old["bmp"]
+            nv["vals"][:, :, :W] = old["vals"]
+            nv["exc_idx"][:, :ecap] = old["exc_idx"]
+            nv["exc_delta"][:, :ecap] = old["exc_delta"]
+            nv["ovf_idx"][:, :ovcap] = old["ovf_idx"]
+            nv["ovf_rows"][:, :ovcap] = old["ovf_rows"]
+            nv["u8"][:] = old["u8"]
+            nv["cnt"] = old["cnt"]
+            self.bufs[k] = nv
+
+    def pack(self, k, batch, sps, pps, n_threads, tm):
+        """Entropy-decode and pack a batch of (slice_datas, headers) into
+        slot k, growing the caps as its pictures need, and pad the tail
+        by replicating the last picture.  Returns the blob as a uint8
+        tensor, or None at the first picture holding PCM MBs, which the
+        wire does not carry."""
+        from .native.entropy import decode_pack_picture_islices
+
+        if self.ev[k] is not None:
+            with tm.stage("ship"):
+                self.ev[k].synchronize()
+        npad = self.npad
+        b = self.bufs[k]
+        for i, (slice_datas, headers) in enumerate(batch):
+            with tm.stage("prep"):
+                ctl = _dbctl_of(headers)
+            stage = "entropy"
+            while True:
+                b["exc_idx"][i] = 0
+                b["exc_delta"][i] = 0
+                b["ovf_idx"][i] = npad
+                W, ecap, ovcap = self.caps
+                # fused: slice workers pack their MB ranges cache-hot
+                with tm.stage(stage):
+                    out, maxnz, nexc, novf = decode_pack_picture_islices(
+                        slice_datas, sps, pps, W, ctl, b["bmp"][i],
+                        b["vals"][i], b["cnt"][i], b["u8"][i],
+                        b["exc_idx"][i], b["exc_delta"][i],
+                        b["ovf_idx"][i], b["ovf_rows"][i],
+                        n_threads=n_threads, reuse=True)
+                if stage == "entropy":
+                    tm.count("frames", 1)
+                    tm.count("bins", int(out["bin_count"].sum()))
+                if maxnz < 0:
+                    return None
+                # rare growth retries (sticky caps, typically once per
+                # stream on the first picture) re-decode the picture
+                if maxnz > W and W < 256 and novf * 816 > npad * 32:
+                    # dense stream: grow the sticky stride to the true
+                    # per-MB max instead of shipping 816-byte overflow
+                    # rows; earlier slots of this batch stay valid
+                    self._grow((min(_round_cap(maxnz, 32), 256), ecap,
+                                ovcap))
+                elif nexc > ecap:
+                    self._grow((W, _round_cap(nexc, 256), ovcap))
+                elif novf > ovcap:
+                    self._grow((W, ecap, _round_cap(novf, 64)))
+                else:
+                    break
+                b = self.bufs[k]
+                stage = "pack"
+        with tm.stage("pad"):
+            last = len(batch) - 1
+            for i in range(len(batch), self.F):
+                for key in ("bmp", "cnt", "u8", "vals", "exc_idx",
+                            "exc_delta", "ovf_idx", "ovf_rows"):
+                    b[key][i] = b[key][last]
+        return torch.from_numpy(b["_blob"])
+
+
 def split_blob(blob, offs):
     """Typed views of a device blob's segments; offs maps each name to
     (offset, shape, numpy dtype), as ``_blob_layout`` returns them."""
@@ -327,7 +432,6 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     in several threads or on several CUDA streams take turns at the
     shared steps (``StepCache.hold``)."""
     from .decoder import DecodedFrame
-    from .native.entropy import decode_pack_picture_islices
     from .utils.obs import StageTimers
 
     dev = resolve_device(device)
@@ -390,96 +494,12 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                 results.append(DecodedFrame(ys[i], cbs[i], crs[i])
                                .crop(sps))
 
-    # double-buffered pinned host staging; the C++ pack stage fills the
-    # slots straight from the entropy arena.  A slot is refilled only
-    # after the device copy that read it has completed (its event).  The
-    # vals stride W starts at 32 and grows (sticky, like the exc/ovf
-    # caps) when the stream is dense enough that the 816-byte-per-MB
-    # overflow channel would dominate the wire.
-    W = 32
-    ecap = 256
-    ovcap = 64
-    bufs = []
-    slot_ev = [None, None]
-    for _ in range(2):
-        blob, views = _alloc_blob(F, npad, n, W, ecap, ovcap, pin=cuda)
-        views["cnt"] = np.zeros((F, npad), np.int32)
-        views["_blob"] = blob
-        bufs.append(views)
-
-    def _grow(newW, newE, newO):
-        nonlocal W, ecap, ovcap
-        for ev in slot_ev:
-            if ev is not None:
-                ev.synchronize()
-        for k in range(2):
-            old = bufs[k]
-            blob, nv = _alloc_blob(F, npad, n, newW, newE, newO, pin=cuda)
-            nv["bmp"][:] = old["bmp"]
-            nv["vals"][:, :, :W] = old["vals"]
-            nv["exc_idx"][:, :ecap] = old["exc_idx"]
-            nv["exc_delta"][:, :ecap] = old["exc_delta"]
-            nv["ovf_idx"][:, :ovcap] = old["ovf_idx"]
-            nv["ovf_rows"][:, :ovcap] = old["ovf_rows"]
-            nv["u8"][:] = old["u8"]
-            nv["cnt"] = old["cnt"]
-            nv["_blob"] = blob
-            bufs[k] = nv
-        W, ecap, ovcap = newW, newE, newO
-
+    staging = BlobStaging(F, npad, n, pin=cuda)
     batches = [pics[b0:b0 + F] for b0 in range(0, len(pics), F)]
     cur = 0
     for batch in batches:
-        if slot_ev[cur] is not None:
-            with tm.stage("ship"):
-                slot_ev[cur].synchronize()
-        b = bufs[cur]
-        has_pcm = False
-        for i, (slice_datas, headers) in enumerate(batch):
-            with tm.stage("prep"):
-                ctl = _dbctl_of(headers)
-                b["exc_idx"][i] = 0
-                b["exc_delta"][i] = 0
-                b["ovf_idx"][i] = npad
-            # fused: slice workers pack their MB ranges cache-hot
-            with tm.stage("entropy"):
-                out, maxnz, nexc, novf = decode_pack_picture_islices(
-                    slice_datas, sps, pps, W, ctl, b["bmp"][i],
-                    b["vals"][i], b["cnt"][i], b["u8"][i],
-                    b["exc_idx"][i], b["exc_delta"][i],
-                    b["ovf_idx"][i], b["ovf_rows"][i],
-                    n_threads=n_threads, reuse=True)
-            tm.count("frames", 1)
-            tm.count("bins", int(out["bin_count"].sum()))
-            # rare growth retries (sticky caps, typically once per stream
-            # on the first picture) re-decode the picture
-            while maxnz >= 0 and (nexc > ecap or novf > ovcap
-                                  or (maxnz > W and W < 256
-                                      and novf * 816 > npad * 32)):
-                if maxnz > W and W < 256 and novf * 816 > npad * 32:
-                    # dense stream: grow the sticky stride to the true
-                    # per-MB max instead of shipping 816-byte overflow
-                    # rows; earlier slots of this batch stay valid
-                    _grow(min(_round_cap(maxnz, 32), 256), ecap, ovcap)
-                elif nexc > ecap:
-                    _grow(W, _round_cap(nexc, 256), ovcap)
-                elif novf > ovcap:
-                    _grow(W, ecap, _round_cap(novf, 64))
-                b = bufs[cur]
-                b["exc_idx"][i] = 0
-                b["exc_delta"][i] = 0
-                b["ovf_idx"][i] = npad
-                with tm.stage("pack"):
-                    out, maxnz, nexc, novf = decode_pack_picture_islices(
-                        slice_datas, sps, pps, W, ctl, b["bmp"][i],
-                        b["vals"][i], b["cnt"][i], b["u8"][i],
-                        b["exc_idx"][i], b["exc_delta"][i],
-                        b["ovf_idx"][i], b["ovf_rows"][i],
-                        n_threads=n_threads, reuse=True)
-            if maxnz < 0:
-                has_pcm = True
-                break
-        if has_pcm:
+        host = staging.pack(cur, batch, sps, pps, n_threads, tm)
+        if host is None:
             # PCM samples ride their own host rows into the same device
             # path after densify (x264 never emits PCM)
             with tm.stage("pack"):
@@ -494,14 +514,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                     harvest(pending)
             pending = (r, len(batch))
             continue
-        # pad the tail batch by replicating the last picture's slot
-        with tm.stage("pad"):
-            last = len(batch) - 1
-            for i in range(len(batch), F):
-                for k in ("bmp", "cnt", "u8", "vals", "exc_idx",
-                          "exc_delta", "ovf_idx", "ovf_rows"):
-                    b[k][i] = b[k][last]
-        host = torch.from_numpy(b["_blob"])
+        W, ecap, ovcap = staging.caps
         with (STEPS.hold(
                 (dev, mb_w, mb_h, F, deblocked, c0, c1, W, ecap, ovcap),
                 lambda: functools.partial(get_model(), W=W, ecap=ecap,
@@ -513,8 +526,8 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                 else:
                     blob = host.to(dev, non_blocking=True) if cuda else host
                 if cuda:
-                    slot_ev[cur] = torch.cuda.Event()
-                    slot_ev[cur].record(torch.cuda.current_stream(dev))
+                    staging.ev[cur] = torch.cuda.Event()
+                    staging.ev[cur].record(torch.cuda.current_stream(dev))
             with tm.stage("dispatch"):
                 r = to_host(step() if graph else
                             get_model()(blob, W, ecap, ovcap))
@@ -527,9 +540,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
         with tm.stage("harvest"):
             harvest(pending)
     # the staging blobs are freed on return: let their copies drain
-    for ev in slot_ev:
-        if ev is not None:
-            ev.synchronize()
+    staging.drain()
     return results
 
 
