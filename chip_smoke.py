@@ -38,7 +38,14 @@ or a stored golden:
 - the per-picture path, ``pipeline.decode_annexb_fast`` (intra
   wavefront and deblock at F = 1), on the 1080p goldens and on
   encoder-made CAVLC and scaling-matrix pictures, which the batched
-  pipeline must hand to it;
+  pipeline must hand to it; the LevelScale lists are inputs of its
+  step, so the flat and the scaling-matrix pictures of one geometry
+  must share one key;
+- ``pipeline.entry()``, the counterpart of ``__graft_entry__.entry()``
+  (the per-picture step at 4x4 MBs, intra wavefront at F = 1), on its
+  example arguments and on random non-flat lists: one step made for
+  both, each call equal to the plain run on the CPU and the flat one to
+  native C++, its replay timed;
 - the sharded decode, ``parallel`` (GOP-sharded, band-pipelined,
   band-sharded single frame, the dry run), on one card through meshes
   that repeat it: each path eager and graphed (one step of
@@ -1127,6 +1134,8 @@ def main():
     from dryv_tpu_torch.pipeline import (decode_annexb_fast,
                                          frames_from_stream, recon_syntax,
                                          tables_for)
+    from dryv_tpu_torch.refimpl.transform import (level_scale_4x4,
+                                                  level_scale_8x8)
     from dryv_tpu_torch.syntax import stack_frames, syntax_tensors
     from dryv_tpu_torch.tables import decoder_tables
     from dryv_tpu_torch.testing.motion import (KINDS, full_pel_census,
@@ -1882,6 +1891,69 @@ def main():
     host_side.append(per_picture_host_calls)
     print(f"captured steps of the per-picture path: "
           f"{json.dumps(pipeline.STEPS.stats())}  [{card}]")
+    # the LevelScale lists are inputs of the step: the flat CAVLC and the
+    # SPS scaling-matrix pictures (8x6 MBs, deblocked, PCM in each) share
+    # one key
+    pp_keys = [(k[1], k[2], k[3], len(k[4])) for k in pipeline.STEPS.steps]
+    print(f"per-picture keys (mb_w, mb_h, deblocked, syntax tensors): "
+          f"{pp_keys}  [{card}]")
+    if sum(k[:2] == (8, 6) for k in pp_keys) != 1:
+        fail("the flat-list and the scaling-matrix pictures of 8x6 MBs "
+             "made other than one per-picture key")
+
+    # ---- phase 8b: entry(), the counterpart of __graft_entry__.entry() -
+    # the per-picture step at 4x4 MBs without the in-loop filter (B2 at
+    # F = 1) on its example picture, then on random non-flat LevelScale
+    # lists: one step made for both, each call equal to the plain run on
+    # the CPU, the flat call to native C++
+    phase("8b entry")
+    made = pipeline.STEPS.made
+    reset_counts()
+    fn, args = pipeline.entry()
+    got = fn(*args)
+    c = counts()
+    print(f"launches, entry()'s first call (warm-up and capture): {c}")
+    if c["intra_wavefront"] <= 0:
+        fail("entry(): B2 did not launch in the first call")
+    rs = np.random.default_rng(11)
+    lists = [level_scale_4x4(rs.integers(4, 64, (4, 4))) for _ in range(3)]
+    lists = [np.asarray(a, np.int32)
+             for a in (*lists, level_scale_8x8(rs.integers(4, 64, (8, 8))))]
+    got2 = fn(args[0], *(torch.from_numpy(a).to(dev) for a in lists))
+    torch.cuda.synchronize()
+    if pipeline.STEPS.made - made != 1:
+        fail(f"entry(): {pipeline.STEPS.made - made} steps made for two "
+             f"calls on other lists")
+    (key,) = [k for k in pipeline.STEPS.steps if k[0].type == "cuda"
+              and k[1:3] == (4, 4)]
+    entry_step = pipeline.STEPS.steps[key]
+    cpu_fn, (cpu_s, *cpu_flat) = pipeline.entry(device="cpu")
+    want = cpu_fn(cpu_s, *cpu_flat)
+    want2 = cpu_fn(cpu_s, *(torch.from_numpy(a) for a in lists))
+    (r,) = decode_annexb_native(parallel._tiny_stream(1))
+    for label, g, w in (("flat lists vs plain", got, want),
+                        ("flat lists vs native C++", got,
+                         [torch.from_numpy(p) for p in (r.y, r.cb, r.cr)]),
+                        ("random lists vs plain", got2, want2)):
+        if max_err([x.cpu() for x in g], w):
+            fail(f"entry(): {label} differ")
+    if all(torch.equal(a, b) for a, b in zip(got, got2)):
+        fail("entry(): the random lists changed no sample")
+    call_ms = cuda_ms(lambda: fn(*args), 50)
+    replay_ms = cuda_ms(lambda: entry_step.graphs[0].replay(), 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fn(*args)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 50
+    print(f"entry(): fn(*args) bit-exact (graphed, B2) vs its plain run "
+          f"on the CPU and native C++ (flat lists) and vs the plain run "
+          f"on random lists, 1 step made for both; CUDA events, mean of "
+          f"50, the card held while the calls enqueue: replay "
+          f"{replay_ms:.4f} ms, whole call (loads, replay, clones) "
+          f"{call_ms:.4f} ms on the card, {host_ms:.4f} ms of host "
+          f"a call back to back  [{card}]")
 
     # ---- phase 9: the sharded paths on one card, eager and graphed -----
     # graph=False enqueues each path op by op on its mesh slots' streams;
@@ -2511,7 +2583,9 @@ def main():
 
     trace = device_kernels_in_profile(
         [("per call", per_call)] + [(p, fn) for p, fn, _, _ in census]
-        + [("band pipeline replay", band_replay)] + card_segments, names)
+        + [("band pipeline replay", band_replay),
+           ("entry() replay", lambda: entry_step.graphs[0].replay())]
+        + card_segments, names)
     if trace is None:
         fail("the profiler recorded no device time: the graphed paths' "
              "launches are not measured")
@@ -2556,6 +2630,13 @@ def main():
           f"{sum(trace['band pipeline replay']['intra_rows_kernel']):.3f} "
           f"ms summed over "
           f"{len(trace['band pipeline replay']['intra_rows_kernel'])} "
+          f"launches  [{card}]")
+    n_act, span, summed, busy = trace["entry() replay"]["all"]
+    print(f"one replay of entry()'s step (4x4 MBs, stage A + B2) in the "
+          f"census trace: {n_act} device activities, {span:.4f} ms from "
+          f"the first start to the last end, {summed:.4f} ms summed; B2 "
+          f"{sum(trace['entry() replay']['intra_rows_kernel']):.4f} ms "
+          f"over {len(trace['entry() replay']['intra_rows_kernel'])} "
           f"launches  [{card}]")
     for f in host_side:
         f()

@@ -12,7 +12,10 @@ enable it, the edge parameters and kernel B3.  The JAX package's XLA
 scan wavefront and deblock (``_build``) have no counterpart here: B2 and
 B3 and their plain versions do that job.  Its jit does: the device work
 of a picture runs as one captured CUDA graph per static key
-(``STEPS``).
+(``STEPS``), which takes the LevelScale lists as inputs, as ``_build``'s
+recon takes them as arguments.  ``entry`` is the counterpart of the
+root ``__graft_entry__.py``'s ``entry()``: that step at 4x4 MBs with
+example arguments.
 """
 from __future__ import annotations
 
@@ -155,22 +158,46 @@ def deblock_pre_of(fs, slice_id, headers, pps, device):
         pps.second_chroma_qp_offset, tables_for(device))
 
 
+# the LevelScale lists, the per-picture step's inputs after the syntax
+# tensors: ls4y, ls4cb, ls4cr [6,16] and ls8y [6,64] int32 rows
+LS_KEYS = ("ls4y", "ls4cb", "ls4cr", "ls8y")
+
 # one captured step per key (device, mb_w, mb_h, deblocked, the syntax
-# tensors' names, which PCM pictures extend, and the content of the
-# LevelScale lists): the counterpart of the jitted _build recon
+# tensors' names, which PCM pictures extend): the counterpart of the
+# jitted _build recon, which takes the LevelScale lists as arguments
 STEPS = StepCache(max_keys=8)
 
 
 def _recon_fn(tabs, mb_w, mb_h, names):
-    """fn(*syntax tensors in `names` order, *PRE_KEYS params if
-    deblocked) -> (y, cb, cr): stage A, B2 and B3."""
+    """fn(*syntax tensors in `names` order, ls4y, ls4cb, ls4cr, ls8y,
+    *PRE_KEYS params if deblocked) -> (y, cb, cr): stage A with the
+    LevelScale rows it is given and the other tables of `tabs`, B2 and
+    B3."""
+    n, m = len(names), len(names) + len(LS_KEYS)
+
     def fn(*xs):
-        y, cb, cr = recon_syntax(dict(zip(names, xs)), tabs, mb_w, mb_h)
-        if len(xs) > len(names):
-            prm = pack_params(dict(zip(PRE_KEYS, xs[len(names):])))
+        t = dict(tabs, **dict(zip(LS_KEYS, xs[n:m])))
+        y, cb, cr = recon_syntax(dict(zip(names, xs)), t, mb_w, mb_h)
+        if len(xs) > m:
+            prm = pack_params(dict(zip(PRE_KEYS, xs[m:])))
             y, cb, cr = deblock(prm, y, cb, cr, mb_w, mb_h)
         return y, cb, cr
     return fn
+
+
+def _run_step(dev, mb_w, mb_h, names, xs, graph=True):
+    """The per-picture step on inputs `xs` (``_recon_fn``'s): loaded into
+    the static inputs of its key's captured step and replayed, or with
+    `graph` False run op by op on them."""
+    def make():
+        return _recon_fn(tables_for(dev), mb_w, mb_h, names)
+    if not graph:
+        return make()(*xs)
+    deblocked = len(xs) > len(names) + len(LS_KEYS)
+    with STEPS.hold((dev, mb_w, mb_h, deblocked, names), make, xs,
+                    dev) as step:
+        step.load(*xs)
+        return step()
 
 
 def reconstruct_frame(fs, ls4=None, ls8=None, deblock_pre=None,
@@ -178,29 +205,56 @@ def reconstruct_frame(fs, ls4=None, ls8=None, deblock_pre=None,
     """One FrameSyntax -> (y, cb, cr) uint8 numpy planes (uncropped).
 
     Counterpart of ``reconstruct_frame_jax`` (``dryv_tpu/pipeline.py``
-    :61): stage A with the tables of ls4/ls8, B2 with F = 1, then B3 when
-    `deblock_pre` (``deblock_pre_of``) is given.  With `graph` (the
-    default) the syntax tensors and the edge parameters are copied into
-    the static inputs of the key's captured step, which is replayed
-    (one thread or stream at a time, ``StepCache.hold``)."""
+    :61): stage A with the LevelScale lists ls4/ls8, B2 with F = 1, then
+    B3 when `deblock_pre` (``deblock_pre_of``) is given.  With `graph`
+    (the default) the syntax tensors, the lists and the edge parameters
+    are copied into the static inputs of the key's captured step, which
+    is replayed (one thread or stream at a time, ``StepCache.hold``);
+    pictures with other lists replay the same step."""
     dev = resolve_device(device)
-    lists = _lists_key(ls4, ls8)
-    tabs = _cached_tables(str(dev), *lists)
     s = syntax_tensors(stack_frames([fs]), "cpu" if graph else dev)
     names = tuple(sorted(s))
-    xs = [s[k] for k in names]
+    lists = tables_for(dev, ls4, ls8)
+    xs = [s[k] for k in names] + [lists[k] for k in LS_KEYS]
     if deblock_pre is not None:
         xs += [deblock_pre[k] for k in PRE_KEYS]
-    if graph:
-        with STEPS.hold((dev, fs.mb_w, fs.mb_h, deblock_pre is not None,
-                         names, lists),
-                        lambda: _recon_fn(tabs, fs.mb_w, fs.mb_h, names),
-                        xs, dev) as step:
-            step.load(*xs)
-            y, cb, cr = step()
-    else:
-        y, cb, cr = _recon_fn(tabs, fs.mb_w, fs.mb_h, names)(*xs)
+    y, cb, cr = _run_step(dev, fs.mb_w, fs.mb_h, names, xs, graph)
     return y[0].cpu().numpy(), cb[0].cpu().numpy(), cr[0].cpu().numpy()
+
+
+def entry(device="cuda"):
+    """(fn, example_args): the per-picture step of a 4x4-MB picture
+    without the in-loop filter, and its arguments.
+
+    Counterpart of ``__graft_entry__.py`` ``entry()`` :26-38, which
+    returns the jitted ``_build(4, 4)`` recon.  ``example_args`` are
+    (s, ls4y, ls4cb, ls4cr, ls8y) on `device`: the syntax tensors
+    (``syntax_tensors``) of the one picture of ``parallel._tiny_stream
+    (1)``, byte for byte the ``slices_qp28`` fixture's stream the
+    original decodes (4 slices, I16/I4/PCM), and the flat LevelScale
+    lists ``LS4_FLAT`` x 3 and ``LS8_FLAT`` ([6,4,4], [6,8,8]).
+    ``fn(s, ls4y, ls4cb, ls4cr, ls8y)`` loads them into its key's step
+    in ``STEPS`` and replays it (on the CPU: runs it on the step's
+    buffers), returning uint8 y [64,64], cb [32,32], cr [32,32] on
+    `device`.  The lists may also come as rows ([6,16], [6,64]); other
+    lists, or another 4x4 picture with the same syntax fields, replay
+    the same step."""
+    from .parallel import _tiny_stream
+
+    dev = resolve_device(device)
+    (fs,), _ = frames_from_stream(_tiny_stream(1))
+    mb_w, mb_h = fs.mb_w, fs.mb_h
+
+    def fn(s, ls4y, ls4cb, ls4cr, ls8y):
+        names = tuple(sorted(s))
+        xs = [s[k] for k in names] + [ls.reshape(6, -1) for ls in
+                                      (ls4y, ls4cb, ls4cr, ls8y)]
+        y, cb, cr = _run_step(dev, mb_w, mb_h, names, xs)
+        return y[0], cb[0], cr[0]
+
+    ls = torch.from_numpy(LS4_FLAT).to(dev)
+    return fn, (syntax_tensors(stack_frames([fs]), dev), ls, ls, ls,
+                torch.from_numpy(LS8_FLAT).to(dev))
 
 
 def _level_scales(sps, pps):

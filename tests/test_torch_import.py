@@ -132,6 +132,30 @@ def test_ipb_decode_with_dryv_tpu_and_jax_blocked(tmp_path):
             np.testing.assert_array_equal(got[f"{p}{i}"], r)
 
 
+def test_entry_with_dryv_tpu_and_jax_blocked():
+    """``pipeline.entry`` (the counterpart of ``__graft_entry__.entry``)
+    builds its picture and runs its step on the CPU in a process where
+    ``dryv_tpu`` and jax cannot load, equal to the native C++ decode, and
+    raises without CUDA unless given device="cpu"."""
+    _run("import sys\n"
+         "sys.modules['dryv_tpu'] = None\n"
+         "sys.modules['jax'] = None\n"
+         "import numpy as np, pytest, torch\n"
+         "from dryv_tpu_torch.native.full import decode_annexb_native\n"
+         "from dryv_tpu_torch.parallel import _tiny_stream\n"
+         "from dryv_tpu_torch.pipeline import entry\n"
+         "fn, args = entry(device='cpu')\n"
+         "(ref,) = decode_annexb_native(_tiny_stream(1))\n"
+         "for g, r in zip(fn(*args), (ref.y, ref.cb, ref.cr)):\n"
+         "    np.testing.assert_array_equal(g.numpy(), r)\n"
+         "torch.cuda.is_available = lambda: False\n"
+         "with pytest.raises(RuntimeError, match='cuda'):\n"
+         "    entry()\n"
+         "bad = [m for m, v in sys.modules.items() if v is not None "
+         "and m.split('.')[0] in ('dryv_tpu', 'jax', 'jaxlib')]\n"
+         "assert not bad, bad\n")
+
+
 def _ipb_stream():
     """I, P and B pictures of 6x4 MBs from the JAX package's encoder, the
     in-loop filter on (tests/test_device_ipb_packed.py's sequence)."""
