@@ -12,8 +12,10 @@ the sources in this checkout, and holds each kernel against its plain
 PyTorch version at the shapes its paths give it (1080p batches of 16
 pictures, and of 1 for the per-picture and I/P/B paths' intra wavefront
 and deblock and the I/P/B path's densify; one band of 120x17 MBs x 4
-for the banded wavefront; densify at W = 32, 96 and 256; deblock with every edge on, with random
-slices and disable_deblocking_filter_idc, and on inter edge parameters;
+for the banded wavefront; densify at W = 32, 96 and 256; stage A (B5) on random kinds, QPs 0-51,
+chroma offsets -12 and +12 and random LevelScale lists; the deblock parameters (B6) with random
+slices and disable_deblocking_filter_idc 0/1/2 and on an inter motion field; deblock with every
+edge on, with random slices and disable_deblocking_filter_idc, and on inter edge parameters;
 motion compensation at 120x68 MBs over stacks of 3 pictures, P and B,
 weighted prediction 0/1/2, random vectors per 4x4 block near and far,
 and H.264 macroblock layouts from ``testing.motion.partitioned_field``,
@@ -89,10 +91,14 @@ bit-exact to each other and to the reference; one set of I/P/B steps is
 captured with torch.cuda's sync debug mode set to "error" inside the
 captured function.  A replay launches its kernels without calling their
 wrappers, so the run ends with one torch.profiler device trace (the
-census): one B1, B2, B3 and B4 call each, then every graphed path's
-streams again, each kernel counted by name; a graphed path's count must
-equal its eager decode's wrapper counts, and the per-kernel JSON takes
-its launches from there.  It times the kernels, the
+census): one call of each kernel, then every graphed path's streams
+again, each kernel counted by name; a graphed path's count must equal
+its eager decode's wrapper counts, and the per-kernel JSON takes its
+launches from there.  B5 must show on every path's step, B6 on every
+deblocked one, and ``entry()``'s replay must hold fewer than 100 device
+activities.  The same trace splits each step's device time by part:
+eager runs of the steps, the device time each ``torch.profiler`` range
+of ``dryv_tpu_torch.kernels.RANGES`` launched.  It times the kernels, the
 end-to-end batched decode eager and graphed in turns, the device span of
 a batch of 16 deblocked pictures, the per-picture decode eager and
 graphed, the sharded paths eager and graphed in turns (the band pipeline beside
@@ -193,7 +199,8 @@ def cuda_ms(fn, reps):
 def random_syntax(rng, mb_w, mb_h, F, below_band=False):
     """Random legal intra syntax, as tests/test_pallas_wavefront.py makes
     it: geometric availability, modes that read only available
-    neighbours, residuals in [-300, 300], PCM included.  below_band:
+    neighbours, residuals in [-300, 300] as B2 reads them (int16,
+    clamped to [-255, 255]), PCM included.  below_band:
     MB row 0 has neighbours above (a band below another band)."""
     n = mb_w * mb_h
     s = {
@@ -219,8 +226,8 @@ def random_syntax(rng, mb_w, mb_h, F, below_band=False):
                                m[~(a & b)])
     s["i16_mode"] = np.where(a & b, s["i16_mode"], 2).astype(np.int32)
     s["chroma_mode"] = np.where(a & b, s["chroma_mode"], 0).astype(np.int32)
-    y_z = rng.integers(-300, 300, (F, n, 256)).astype(np.int32)
-    c = rng.integers(-300, 300, (F, n, 2, 8, 8)).astype(np.int32)
+    y_z, c = (np.clip(rng.integers(-300, 300, shape), -255, 255)
+              .astype(np.int16) for shape in ((F, n, 256), (F, n, 2, 8, 8)))
     return s, y_z, c
 
 
@@ -394,30 +401,37 @@ def b4_args(stacks, field, nlists, mode, mb_w, mb_h):
             mv[:, 1] if b else None, wp, mb_w, mb_h)
 
 
-def inter_edge_params(rng, mb_w, mb_h, tables, dev):
-    """B3's parameter rows [1, n, 192] of a random I/P/B picture through
-    ``deblock_precompute``: intra and inter kinds, sorted slice ids with
+def inter_edge_inputs(rng, mb_w, mb_h, dev):
+    """B6's inputs for a random I/P/B picture, on the packed wire's layout
+    (``deblock_params``): intra and inter kinds, sorted slice ids with
     disable_deblocking_filter_idc 0/1/2, coded flags and small vectors per
-    4x4 block, so that bS 1 and 2 occur and change along an edge."""
-    from dryv_tpu_torch.kernels.deblock import (deblock_precompute,
-                                                pack_params)
-
+    4x4 block, so that bS 1 and 2 occur and change along an edge.
+    Returns (the per-MB fields, {t8, nz4, mv, rs})."""
     n = mb_w * mb_h
-    H4, W4 = 4 * mb_h, 4 * mb_w
+    n4 = 16 * n
 
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)[None]
+    def t(a, dt=np.int32):
+        return torch.from_numpy(np.asarray(a, dt)).to(dev)[None]
 
     offs = 2 * rng.integers(-3, 4, n)
-    return pack_params(deblock_precompute(
-        t(rng.choice([0, 1, 2, 4, 5, 6, 7, 8, 9, 10], n,
-                     p=[.04, .03, .03] + [.9 / 7] * 7)),
-        t(rng.integers(10, 52, n)), t(np.sort(rng.integers(0, 9, n))),
-        t(rng.choice([0, 1, 2], n, p=[.8, .1, .1])), t(offs), t(-offs),
-        mb_w, mb_h, 1, -2, tables, t(rng.integers(0, 2, n)),
-        t(rng.random((H4, W4)) < 0.3), t(rng.integers(-6, 7, (H4, W4, 2))),
-        t(rng.integers(-6, 7, (H4, W4, 2))), t(rng.integers(-1, 3, (H4, W4))),
-        t(rng.integers(-1, 3, (H4, W4)))))
+    per_mb = (t(rng.choice([0, 1, 2, 4, 5, 6, 7, 8, 9, 10], n,
+                           p=[.04, .03, .03] + [.9 / 7] * 7)),
+              t(rng.integers(10, 52, n)), t(np.sort(rng.integers(0, 9, n))),
+              t(rng.choice([0, 1, 2], n, p=[.8, .1, .1])), t(offs),
+              t(-offs))
+    return per_mb, {"t8": t(rng.integers(0, 2, n)),
+                    "nz4": t(rng.random((4 * mb_h, 4 * mb_w)) < 0.3, bool),
+                    "mv": t(rng.integers(-6, 7, (n4, 2, 2)), np.int16),
+                    "rs": t(rng.integers(-1, 3, (n4, 4)), np.int8)}
+
+
+def inter_edge_params(rng, mb_w, mb_h, tables, dev):
+    """B3's parameter rows [1, n, 192] of a random I/P/B picture
+    (``inter_edge_inputs``) through B6's plain version."""
+    from dryv_tpu_torch.kernels.deblock import deblock_params_plain
+
+    per_mb, inter = inter_edge_inputs(rng, mb_w, mb_h, dev)
+    return deblock_params_plain(*per_mb, mb_w, mb_h, 1, -2, tables, **inter)
 
 
 # The C entries of the earlier kernels --compare builds: source, name,
@@ -563,14 +577,24 @@ def device_kernels_in_profile(segments, names):
                 fn()
                 sync_all()
             time.sleep(0.02)
+    from dryv_tpu_torch.kernels import RANGES
+
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     evs = prof.events()
     kern = sorted((e for e in evs if e.device_type == cuda),
                   key=lambda e: e.time_range.start)
     if not kern:
         return None
-    starts = {e.name[len("segment "):]: e.time_range.start for e in evs
+    seg_ev = {e.name[len("segment "):]: e for e in evs
               if e.device_type == cpu and e.name.startswith("segment ")}
+    starts = {k: e.time_range.start for k, e in seg_ev.items()}
+    ranges = [e for e in evs if e.device_type == cpu and e.name in RANGES]
+
+    def launched(e):
+        """The device activities launched inside CPU event e and its
+        children, as the profiler links them."""
+        return list(e.kernels) + [k for c in e.cpu_children
+                                  for k in launched(c)]
     bounds = [starts[label] - 1e4 for label, _ in segments] + [float("inf")]
     out = {}
     for i, (label, _) in enumerate(segments):
@@ -586,6 +610,17 @@ def device_kernels_in_profile(segments, names):
         out[label]["all_by_device"] = {
             d: activity([e for e in seg if e.device_index == d])
             for d in sorted({e.device_index for e in seg})}
+        # device ms and activities by RANGES name, for eager runs (a
+        # replay's kernels link to its one graph launch)
+        span = seg_ev[label].time_range
+        by_range = {}
+        for e in ranges:
+            if span.start <= e.time_range.start <= span.end:
+                ks = launched(e)
+                ms, cnt = by_range.get(e.name, (0.0, 0))
+                by_range[e.name] = (ms + sum(k.duration for k in ks) / 1e3,
+                                    cnt + len(ks))
+        out[label]["ranges"] = by_range
     return out
 
 
@@ -1121,11 +1156,15 @@ def main():
         PackedPictureDecoder, decode_annexb_device_packed)
     from dryv_tpu_torch.gop_pipeline import (PackedGopDecoder,
                                              decode_annexb_gop_pipelined)
-    from dryv_tpu_torch.kernels.deblock import (deblock, deblock_plain,
+    from dryv_tpu_torch.kernels.deblock import (deblock, deblock_params,
+                                                deblock_params_plain,
+                                                deblock_plain,
                                                 deblock_precompute,
                                                 pack_params)
     from dryv_tpu_torch.kernels.densify import densify, densify_plain
     from dryv_tpu_torch.kernels.inter import mc_frame, mc_frame_wire_plain
+    from dryv_tpu_torch.kernels.transform import (LEVELS, stage_a,
+                                                  stage_a_plain)
     from dryv_tpu_torch.kernels.wavefront import (intra_recon,
                                                   intra_recon_plain,
                                                   recon_inputs)
@@ -1137,7 +1176,7 @@ def main():
     from dryv_tpu_torch.refimpl.transform import (level_scale_4x4,
                                                   level_scale_8x8)
     from dryv_tpu_torch.syntax import stack_frames, syntax_tensors
-    from dryv_tpu_torch.tables import decoder_tables
+    from dryv_tpu_torch.tables import chroma_qp, decoder_tables
     from dryv_tpu_torch.testing.motion import (KINDS, full_pel_census,
                                                group_census)
     from dryv_tpu_torch.utils.obs import StageTimers
@@ -1300,6 +1339,72 @@ def main():
                      f"{W}]", "B1",
                      lambda: cuda_ms(lambda: old["densify"](bmp, vals), 20),
                      lambda: cuda_ms(lambda: densify(bmp, vals), 20), 20)
+
+    # B5 at the batched path's shape (F = 16, levels as column slices of
+    # the dense [F, 8192, 408] rows) and at F = 1: random kinds (I4, I8,
+    # I16, PCM), QP 0..51, chroma QP offsets -12 and +12, random
+    # LevelScale lists of each list, levels in [-64, 64]
+    n_mb = MB_W * MB_H
+    rl = np.random.default_rng(12)
+    w4 = [level_scale_4x4(rl.integers(4, 64, (4, 4))) for _ in range(3)]
+    lists_a = decoder_tables(dev, *w4, level_scale_8x8(
+        rl.integers(4, 64, (8, 8))))
+    b5_cases = {}
+    for key, nf in (("stage_a", F), ("stage_a_f1", 1)):
+        qp = torch.from_numpy(rng.integers(0, 52, (nf, n_mb))
+                              .astype(np.int32)).to(dev)
+        dense = torch.from_numpy(rng.integers(-64, 65, (nf, npad, 408))
+                                 .astype(np.int16)).to(dev)
+        sa = {"kind": torch.from_numpy(rng.integers(0, 4, (nf, n_mb))
+                                       .astype(np.int32)).to(dev),
+              "qp_y": qp,
+              "qp_cb": chroma_qp(qp, -12, tables["qpc_tab"]).contiguous(),
+              "qp_cr": chroma_qp(qp, 12, tables["qpc_tab"]).contiguous()}
+        col = 0
+        for k, width in LEVELS:
+            sa[k] = dense[:, :n_mb, col:col + width]
+            col += width
+        got = stage_a(sa, lists_a)
+        err = max_err(got, stage_a_plain(sa, lists_a))
+        b5_cases[key] = sa
+        record(key, "dryv_tpu_torch/csrc/stage_a.cu",
+               "dryv_tpu/kernels/pallas_wavefront.py:641", err,
+               cuda_ms(lambda: stage_a(sa, lists_a), 20),
+               cuda_ms(lambda: stage_a_plain(sa, lists_a), 3),
+               bound_ms(*sa.values(), *got))
+
+    # B6 at F = 16 and F = 1, intra (random kinds, QPs, sorted slice ids
+    # with disable_deblocking_filter_idc 0/1/2 per MB, filter offsets up
+    # to +-12, chroma QP offsets 12 and -12), and at F = 1 on the I/P/B
+    # path's inter field (``inter_edge_inputs``: bS 1 and 2)
+    b6_cases = {}
+    for key, nf in (("deblock_params", F), ("deblock_params_f1", 1)):
+        def r32(lo, hi):
+            return torch.from_numpy(rng.integers(lo, hi, (nf, n_mb))
+                                    .astype(np.int32)).to(dev)
+        b6_cases[key] = ((r32(0, 4), r32(0, 52), torch.from_numpy(np.sort(
+            rng.integers(0, 9, (nf, n_mb)), 1).astype(np.int32)).to(dev),
+            r32(0, 3), 2 * r32(-6, 7), 2 * r32(-6, 7)), {})
+    b6_cases["deblock_params_f1 inter"] = inter_edge_inputs(rng, MB_W, MB_H,
+                                                            dev)
+    for key, (per_mb, ex) in b6_cases.items():
+        a6 = (*per_mb, MB_W, MB_H, 12, -12, tables)
+        got = deblock_params(*a6, **ex)
+        err = max_err([got], [deblock_params_plain(*a6, **ex)])
+        ms = cuda_ms(lambda: deblock_params(*a6, **ex), 20)
+        plain = cuda_ms(lambda: deblock_params_plain(*a6, **ex), 3)
+        bound = bound_ms(*per_mb, *ex.values(), got)
+        bs = sorted(torch.unique(got[..., :16]).tolist())
+        if key == "deblock_params_f1":
+            report(f"deblock_params at F = 1, intra (luma vertical bS "
+                   f"{bs})", err, ms, plain, bound)
+            continue
+        if ex and not {1, 2} <= set(bs):
+            fail("deblock_params on the inter field saw no bS 1 and 2")
+        print(f"{key}: luma vertical bS {bs}  [{card}]")
+        record(key.replace(" inter", ""),
+               "dryv_tpu_torch/csrc/deblock_params.cu",
+               "dryv_tpu/kernels/deblock.py:410", err, ms, plain, bound)
 
     # B2 at the batched path's shape (F = 16) and the per-picture path's
     # (F = 1); B2b at one band of 17 MB rows x 4 pictures below another
@@ -1554,10 +1659,13 @@ def main():
     # one B1, B2, B3 or B4 call is one launch on the device: the first
     # segment of the trace at the end of the run
     names = ("densify_kernel", "intra_rows_kernel", "deblock_rows_kernel",
-             "inter_mc_kernel")
+             "inter_mc_kernel", "stage_a_kernel", "deblock_params_kernel")
     b4_prof = [b4_cases[("local", 1, 1)][0], b4_cases[("local", 2, 2)][0]]
 
     def per_call():
+        [stage_a(sa, lists_a) for sa in b5_cases.values()]
+        [deblock_params(*per_mb, MB_W, MB_H, 12, -12, tables, **ex)
+         for per_mb, ex in b6_cases.values()]
         [densify(*b1_cases[nf]) for nf in (F, 1)]
         [intra_recon(*inputs, tables, MB_W, rows, halo=halo)
          for inputs, rows, halo in b2_cases.values()]
@@ -1589,6 +1697,7 @@ def main():
     def reset_counts():
         densify.launches = deblock.launches = mc_frame.launches = 0
         intra_recon.launches = intra_recon.banded_launches = 0
+        stage_a.launches = deblock_params.launches = 0
         decode_annexb_gop_pipelined.fallback_calls = 0
         decode_annexb_fast.host_calls = 0
         decode_annexb_device_packed.host_calls = 0
@@ -1599,6 +1708,8 @@ def main():
                 "intra_wavefront_banded": intra_recon.banded_launches,
                 "deblock": deblock.launches,
                 "inter_mc": mc_frame.launches,
+                "stage_a": stage_a.launches,
+                "deblock_params": deblock_params.launches,
                 "fallback_calls": decode_annexb_gop_pipelined.fallback_calls,
                 "host_calls": decode_annexb_fast.host_calls,
                 "ipb_host_calls": decode_annexb_device_packed.host_calls}
@@ -1640,17 +1751,18 @@ def main():
     reset_counts()
     main_path(True)
     c = counts()
+    main_keys = ("densify", "stage_a", "intra_wavefront", "deblock_params",
+                 "deblock")
     need("main path, graphed, first run (warm-ups and captures)", c,
-         ("densify", "intra_wavefront", "deblock"))
+         main_keys)
     if c["fallback_calls"] != 0:
         fail("the main path left the batched scope")
     reset_counts()
     main_path(False)
     c = counts()
-    need("main path, eager", c, ("densify", "intra_wavefront", "deblock"))
+    need("main path, eager", c, main_keys)
     census.append(("main path", lambda: main_path(True), c,
-                   {k: k for k in ("densify", "intra_wavefront",
-                                   "deblock")}))
+                   {k: k for k in main_keys}))
 
     # ---- phase 7: end-to-end timing, eager and graphed ----------------
     # graph=False enqueues PackedGopDecoder op by op; graph=True (the
@@ -1670,6 +1782,8 @@ def main():
     for graph in (False, True):
         reset_counts()
         runs[graph] = (batched(graph), counts())
+    need("batched timing decode, eager", runs[False][1],
+         ("densify", "stage_a", "intra_wavefront"))
     for a, b in zip(*(runs[g][0] for g in (False, True))):
         if a[3] != b[3] or not all(torch.equal(x, y)
                                    for x, y in zip(a[:3], b[:3])):
@@ -1783,8 +1897,10 @@ def main():
           f"runs each: eager {', '.join(f'{v:.3f}' for v in dspans[False])}"
           f" ms, graphed {', '.join(f'{v:.3f}' for v in dspans[True])} ms; "
           f"launches eager {c}  [{card}]")
-    if c["deblock"] != 3 or c["fallback_calls"]:
-        fail("the deblocked batch did not run B3 once per batch")
+    if c["deblock"] != 3 or c["fallback_calls"] or c["stage_a"] != 3 \
+            or c["deblock_params"] != 3:
+        fail("the deblocked batch did not run B5, B6 and B3 once per "
+             "batch")
     census.append(("deblocked batch x3",
                    lambda: [dblk_batch(deblock, True) for _ in range(3)], c,
                    {}))
@@ -1824,16 +1940,17 @@ def main():
     reset_counts()
     per_picture(True)
     c = counts()
+    pp_keys = ("stage_a", "intra_wavefront", "deblock_params", "deblock")
     need("per-picture path, graphed, first run (warm-ups and captures)", c,
-         ("intra_wavefront", "deblock"))
+         pp_keys)
     if c["host_calls"] != 0:
         fail("the per-picture path sent a stream to the host decoder")
     reset_counts()
     per_picture(False)
     c = counts()
-    need("per-picture path, eager", c, ("intra_wavefront", "deblock"))
+    need("per-picture path, eager", c, pp_keys)
     census.append(("per-picture path", lambda: per_picture(True), c,
-                   {"deblock_f1": "deblock"}))
+                   {"deblock_f1": "deblock", "stage_a_f1": "stage_a"}))
 
     reset_counts()
     check_frames("batched pipeline on the CAVLC pictures, eager",
@@ -1844,7 +1961,7 @@ def main():
     c = counts()
     print(f"launches, CAVLC through the batched pipeline (eager): {c}")
     if (c["fallback_calls"] != 1 or c["host_calls"] != 0
-            or c["intra_wavefront"] <= 0 or c["deblock"] <= 0):
+            or min(c[k] for k in pp_keys) <= 0):
         fail("the batched pipeline did not hand the CAVLC stream to the "
              "per-picture device path")
 
@@ -1894,10 +2011,11 @@ def main():
     # the LevelScale lists are inputs of the step: the flat CAVLC and the
     # SPS scaling-matrix pictures (8x6 MBs, deblocked, PCM in each) share
     # one key
-    pp_keys = [(k[1], k[2], k[3], len(k[4])) for k in pipeline.STEPS.steps]
+    step_keys = [(k[1], k[2], k[3], len(k[4]))
+                 for k in pipeline.STEPS.steps]
     print(f"per-picture keys (mb_w, mb_h, deblocked, syntax tensors): "
-          f"{pp_keys}  [{card}]")
-    if sum(k[:2] == (8, 6) for k in pp_keys) != 1:
+          f"{step_keys}  [{card}]")
+    if sum(k[:2] == (8, 6) for k in step_keys) != 1:
         fail("the flat-list and the scaling-matrix pictures of 8x6 MBs "
              "made other than one per-picture key")
 
@@ -1910,11 +2028,12 @@ def main():
     made = pipeline.STEPS.made
     reset_counts()
     fn, args = pipeline.entry()
+    entry_args = args
     got = fn(*args)
     c = counts()
     print(f"launches, entry()'s first call (warm-up and capture): {c}")
-    if c["intra_wavefront"] <= 0:
-        fail("entry(): B2 did not launch in the first call")
+    if c["intra_wavefront"] <= 0 or c["stage_a"] <= 0:
+        fail("entry(): B5 and B2 did not launch in the first call")
     rs = np.random.default_rng(11)
     lists = [level_scale_4x4(rs.integers(4, 64, (4, 4))) for _ in range(3)]
     lists = [np.asarray(a, np.int32)
@@ -2011,16 +2130,16 @@ def main():
     g_band = banded(True)
     c = counts()
     need("sharded paths, graphed, first run (warm-ups and captures)", c,
-         ("intra_wavefront", "intra_wavefront_banded"))
+         ("stage_a", "intra_wavefront", "intra_wavefront_banded"))
     reset_counts()
     e_gop = gop_sharded(False)
     c_gop = counts()
     reset_counts()
     e_band = banded(False)
     c_band = counts()
-    need("decode_gop_sharded, eager", c_gop, ("intra_wavefront",))
+    need("decode_gop_sharded, eager", c_gop, ("stage_a", "intra_wavefront"))
     need("band pipeline and banded frame, eager", c_band,
-         ("intra_wavefront_banded",))
+         ("stage_a", "intra_wavefront_banded"))
     if not all(np.array_equal(a, b) for a, b in zip(g_gop, e_gop)) or \
             not all(torch.equal(a, b) for a, b in zip(g_band, e_band)):
         fail("a sharded path differs graphed and eager")
@@ -2175,7 +2294,8 @@ def main():
           f"I/P/B path: {seen}")
     if seen != seen_graphed:
         fail("packed I/P/B: graphed and eager pictures differ")
-    i_keys = ("densify", "intra_wavefront", "deblock", "inter_mc")
+    i_keys = ("densify", "stage_a", "intra_wavefront", "deblock_params",
+              "deblock", "inter_mc")
     need("packed I/P/B path, graphed, first run (warm-ups and captures)", c,
          i_keys)
     need("packed I/P/B path, eager", c_eager, i_keys)
@@ -2194,7 +2314,8 @@ def main():
                      "native C++")
 
     census.append(("packed I/P/B path", ipb_graphed, c_eager,
-                   {"inter_mc": "inter_mc", "densify_f1": "densify"}))
+                   {"inter_mc": "inter_mc", "densify_f1": "densify",
+                    "deblock_params_f1": "deblock_params"}))
     first = {}    # nlists -> the first such B4 call of bench1080p_ipb.264
     for a in real["bench1080p_ipb.264"]:
         first.setdefault(1 if a[4] is None else 2, a)
@@ -2581,10 +2702,37 @@ def main():
         with parallel.STEPS.hold(*band_step) as st:
             st()
 
+    # each step's device time by part (kernels.RANGES) and its hand
+    # kernels, from eager runs of the steps inside the trace: a replay's
+    # kernels link to its one graph launch, and the census above holds
+    # the graphed steps' kernels equal to the eager ones
+    e_names = tuple(sorted(entry_args[0]))
+    e_xs = [entry_args[0][k] for k in e_names] + [
+        ls.reshape(6, -1) for ls in entry_args[1:]]
+    dblk1 = open("benchdata/bench1080p_dblk.264", "rb").read()
+    splits = [
+        ("batched step, bench1080p_gop16, F = 16", "batch",
+         lambda: batched(False, stream=gop_stream), 1),
+        ("batched step, bench1080p_dblk x 16, F = 16", "batch",
+         lambda: batched(False, stream=dblk), 1),
+        ("per-picture step, bench1080p_gop16", "picture",
+         lambda: decode_annexb_fast(gop_stream, n_threads=nthreads,
+                                    device=dev, graph=False), 16),
+        ("per-picture step, bench1080p_dblk", "picture",
+         lambda: decode_annexb_fast(dblk1, n_threads=nthreads, device=dev,
+                                    graph=False), 1),
+        ("I/P/B step, bench1080p_ipb", "picture",
+         lambda: decode_annexb_device_packed(ipb, n_threads=nthreads,
+                                             device=dev, graph=False), 10),
+        ("entry() step", "call",
+         lambda: pipeline._run_step(dev, 4, 4, e_names, e_xs, graph=False),
+         1)]
+
     trace = device_kernels_in_profile(
         [("per call", per_call)] + [(p, fn) for p, fn, _, _ in census]
         + [("band pipeline replay", band_replay),
            ("entry() replay", lambda: entry_step.graphs[0].replay())]
+        + [(f"split {label}", fn) for label, _, fn, _ in splits]
         + card_segments, names)
     if trace is None:
         fail("the profiler recorded no device time: the graphed paths' "
@@ -2599,12 +2747,15 @@ def main():
           f"({', '.join(b3_cases)}) and {len(b4_prof)} B4 calls (P, B): "
           f"{n_prof}  [{card}]")
     if [len(n_prof[k]) for k in names] != [
-            2, len(b2_cases), len(b3_cases), len(b4_prof)]:
-        fail("a B1, B2, B3 or B4 call launched other than one kernel")
+            2, len(b2_cases), len(b3_cases), len(b4_prof), len(b5_cases),
+            len(b6_cases)]:
+        fail("a B1, B2, B3, B4, B5 or B6 call launched other than one "
+             "kernel")
     # B2 and B2b are one device kernel: its count is theirs summed
     counters = dict(zip(names, (("densify",),
                                 ("intra_wavefront", "intra_wavefront_banded"),
-                                ("deblock",), ("inter_mc",))))
+                                ("deblock",), ("inter_mc",), ("stage_a",),
+                                ("deblock_params",))))
     for path, _, eager, report in census:
         got = {n: len(trace[path][n]) for n in names}
         expect = {n: sum(eager[k] for k in ks) for n, ks in counters.items()}
@@ -2620,6 +2771,24 @@ def main():
                      f"counters of {n}")
             kernels[line]["launches"] = got[n]
     check_card_census(card, trace, card_entries)
+    # B5 on every path's step that reconstructs intra or residual MBs
+    # (banded P recon takes its residuals as inputs), B6 on every
+    # deblocked one (the deblocked batch, the main path's deblocked
+    # streams, the per-picture path's deblocked pictures, the I/P/B
+    # pictures)
+    segs = [p for p, _, _, _ in census] + ["band pipeline replay",
+                                           "entry() replay"]
+    seen = {p: (len(trace[p]["stage_a_kernel"]),
+                len(trace[p]["deblock_params_kernel"])) for p in segs}
+    print(f"B5 and B6 launches in the census trace by segment: "
+          f"{json.dumps(seen)}  [{card}]")
+    if min(b5 for p, (b5, _) in seen.items()
+           if p != "banded P recon") == 0 or min(
+            seen[p][1] for p in ("main path", "deblocked batch x3",
+                                 "per-picture path",
+                                 "packed I/P/B path")) == 0:
+        fail("B5 did not launch on every path or B6 on every deblocked "
+             "one in the census")
     n_act, span, summed, busy = trace["band pipeline replay"]["all"]
     print(f"one replay of the 4-band pipeline's step (16 pictures, Fi=4) in "
           f"the census trace: {n_act} device activities, {span:.3f} ms from "
@@ -2637,7 +2806,26 @@ def main():
           f"the first start to the last end, {summed:.4f} ms summed; B2 "
           f"{sum(trace['entry() replay']['intra_rows_kernel']):.4f} ms "
           f"over {len(trace['entry() replay']['intra_rows_kernel'])} "
-          f"launches  [{card}]")
+          f"launches, B5 "
+          f"{sum(trace['entry() replay']['stage_a_kernel']):.4f} ms  "
+          f"[{card}]")
+    if n_act >= 100:
+        fail(f"entry()'s replay holds {n_act} device activities")
+    for label, unit, _, per in splits:
+        t = trace[f"split {label}"]
+        n_act, _, summed, _ = t["all"]
+        in_ranges = sum(c for _, c in t["ranges"].values())
+        print(f"device split of the {label}, eager, per {unit} "
+              f"(torch.profiler ranges kernels.RANGES: ms summed, device "
+              f"activities): " + ", ".join(
+                  f"{k} {ms / per:.4f} ({c / per:.1f})"
+                  for k, (ms, c) in t["ranges"].items())
+              + "; hand kernels " + ", ".join(
+                  f"{k} {sum(t[k]) / per:.4f} ({len(t[k]) / per:.1f})"
+                  for k in names if t[k])
+              + f"; all device activities {summed / per:.4f} ms summed "
+              f"({n_act / per:.1f}), {(n_act - in_ranges) / per:.1f} of "
+              f"them outside the ranges  [{card}]")
     for f in host_side:
         f()
 

@@ -12,15 +12,15 @@ Counterpart of ``dryv_tpu/device_ipb_packed.py``.  Per picture:
    the intra pipeline extended with the motion field (int16 vectors, int8
    stack slots and reference indices) and the picture's weighted-
    prediction tables, shipped in one non-blocking copy.
-4. ``PackedPictureDecoder`` on the device: densify (B1, F = 1), stage A,
-   motion compensation over the reference stack that stays on the device
-   (B4, ``kernels.inter.mc_frame``, which resolves the WP tables per
-   block), inter tiles riding B2's PCM channel (F = 1), and for streams
-   that enable it the general edge parameters
-   (``kernels.deblock.deblock_precompute``, the inter boundary-strength
-   rules over the shipped motion field) and B3.  It runs as one captured
-   CUDA graph per static key (``STEPS``, the counterpart of the JAX
-   path's ``_FN_CACHE``): a replay per picture in place of ~890
+4. ``PackedPictureDecoder`` on the device: densify (B1, F = 1), stage A
+   (B5), motion compensation over the reference stack that stays on the
+   device (B4, ``kernels.inter.mc_frame``, which resolves the WP tables
+   per block), inter tiles riding B2's PCM channel (F = 1), and for
+   streams that enable it the general edge parameters (B6,
+   ``kernels.deblock.deblock_params``: the inter boundary-strength rules
+   over the shipped motion field) and B3.  It runs as one captured CUDA
+   graph per static key (``STEPS``, the counterpart of the JAX path's
+   ``_FN_CACHE``): a replay per picture in place of some hundred
    launches.
 
 Reconstructed planes stay on the device as reference pictures; output is
@@ -35,15 +35,16 @@ import ctypes as ct
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .coeffs import KIND_I4, KIND_I8, KIND_PCM
 from .device import resolve_device
-from .gop_pipeline import dense_rows, split_blob, wire_syntax
+from .gop_pipeline import dbctl, dense_rows, split_blob, wire_syntax
 from .graphs import StepCache
-from .kernels.deblock import deblock, deblock_precompute, pack_params
+from .kernels.deblock import deblock, deblock_params
 from .kernels.geometry import BLK, round_up
 from .kernels.inter import mc_frame
-from .kernels.transform import luma_residual_raster, stage_a_residuals
+from .kernels.transform import luma_residual_raster, stage_a
 from .kernels.wavefront import intra_recon, recon_inputs
 from .tables import decoder_tables, index_on
 
@@ -124,17 +125,19 @@ class PackedPictureDecoder(torch.nn.Module):
                                         "exc_delta", "ovf_idx", "ovf_rows")}
         lanes = dense_rows(wire, npad, n)                  # [1, n, 408]
         u8 = g["u8"][None]
-        s = wire_syntax(lanes, u8, mb_w, mb_h, chroma_off0, chroma_off1,
-                        tabs)
-        # bit 6 of the kind byte is an inter MB's transform-8x8 flag
-        kind_raw = u8[..., 0].to(torch.int32)
-        t8 = (kind_raw >> 6) & 1
-        kind = kind_raw & 0x3F
-        inter = (kind >= 4) & (kind <= 10)
-        # stage A reconstructs inter residuals as I4, or I8 with t8
-        s["kind"] = torch.where(inter, torch.where(t8 == 1, KIND_I8, KIND_I4),
-                                kind)
-        y_z, c_resid = stage_a_residuals(s, tabs)
+        with record_function("wire_syntax"):
+            s = wire_syntax(lanes, u8, mb_w, mb_h, chroma_off0,
+                            chroma_off1, tabs)
+            # bit 6 of the kind byte is an inter MB's transform-8x8 flag
+            kind_raw = u8[..., 0].to(torch.int32)
+            t8 = (kind_raw >> 6) & 1
+            kind = kind_raw & 0x3F
+            inter = (kind >= 4) & (kind <= 10)
+            # stage A reconstructs inter residuals as I4, or I8 with t8
+            s["kind"] = torch.where(inter, torch.where(
+                t8 == 1, KIND_I8, KIND_I4).to(torch.int32), kind)
+        with record_function("stage_a"):
+            y_z, c_resid = stage_a(s, tabs)
         mv, rsri = g["mv"], g["rsri"]
         if nlists:
             wp = {"mode": wp_mode, "ri0": rsri[:, 2], "ri1": rsri[:, 3],
@@ -151,29 +154,29 @@ class PackedPictureDecoder(torch.nn.Module):
             s["pcm_c"] = torch.where(inter[..., None, None, None], (
                 pred_c[None] + c_resid).clamp(0, 255), 0)
         s["kind"] = torch.where(inter, KIND_PCM, kind)
-        y, cb, cr = intra_recon(*recon_inputs(s, y_z, c_resid), tabs, mb_w,
-                                mb_h)
+        with record_function("recon_inputs"):
+            ins = recon_inputs(s, y_z, c_resid)
+        y, cb, cr = intra_recon(*ins, tabs, mb_w, mb_h)
         if deblocked:
             # nz per 4x4 block from the densified levels (rows are exact
             # zeros for uncoded and skip blocks); 8x8 MBs take their
             # quadrant's flag; z-scan -> raster block grid
-            lv = lanes[0, :, :256]
-            nz_z = torch.where(((t8 == 1) | (kind == KIND_I8))[0, :, None],
-                               (lv.view(n, 4, 64) != 0).any(-1)
-                               .repeat_interleave(4, 1),
-                               (lv.view(n, 16, 16) != 0).any(-1))
-            nz4 = nz_z[:, index_on("p2z", lv.device)] \
-                .view(mb_h, mb_w, 4, 4).permute(0, 2, 1, 3) \
-                .reshape(4 * mb_h, 4 * mb_w)
-            grid = (1, 4 * mb_h, 4 * mb_w)
-            pre = deblock_precompute(
-                kind, s["qp_y"], s["sid"], u8[..., 16],
-                u8[..., 17].to(torch.int32) - 12,
-                u8[..., 18].to(torch.int32) - 12, mb_w, mb_h, chroma_off0,
-                chroma_off1, tabs, t8, nz4.view(grid),
-                mv[:, 0].view(*grid, 2), mv[:, 1].view(*grid, 2),
-                rsri[:, 0].view(grid), rsri[:, 1].view(grid))
-            y, cb, cr = deblock(pack_params(pre), y, cb, cr, mb_w, mb_h)
+            with record_function("nz4"):
+                lv = lanes[0, :, :256]
+                nz_z = torch.where(
+                    ((t8 == 1) | (kind == KIND_I8))[0, :, None],
+                    (lv.view(n, 4, 64) != 0).any(-1)
+                    .repeat_interleave(4, 1),
+                    (lv.view(n, 16, 16) != 0).any(-1))
+                nz4 = nz_z[:, index_on("p2z", lv.device)] \
+                    .view(mb_h, mb_w, 4, 4).permute(0, 2, 1, 3) \
+                    .reshape(4 * mb_h, 4 * mb_w)
+            with record_function("deblock_params"):
+                prm = deblock_params(
+                    kind, s["qp_y"], s["sid"], *dbctl(u8), mb_w, mb_h,
+                    chroma_off0, chroma_off1, tabs, t8,
+                    nz4.view(1, 4 * mb_h, 4 * mb_w), mv[None], rsri[None])
+            y, cb, cr = deblock(prm, y, cb, cr, mb_w, mb_h)
         return y[0], cb[0], cr[0]
 
 

@@ -6,12 +6,13 @@ preallocated uint8 blob in pinned host memory; the blob goes to the
 device in one non-blocking copy; ``PackedGopDecoder`` then densifies the
 coefficients (kernel B1), applies the |v|>127 and heavy-MB fixes,
 derives qp_c, slice availability and the intra modes, runs stage A
-(inverse quantisation + IDCT, plain tensor code), the intra wavefront
-(kernel B2) and, for streams that enable it, the in-loop filter (kernel
-B3).  The device work of a batch runs as one captured CUDA graph per
-static key (``STEPS``, the counterpart of the JAX pipeline's
-``_PACKED_FN_CACHE``).  Work on the device is asynchronous: while it
-reconstructs batch k, the host entropy-decodes batch k+1.
+(inverse quantisation + IDCT, kernel B5), the intra wavefront (kernel
+B2) and, for streams that enable it, the edge parameters (kernel B6) and
+the in-loop filter (kernel B3).  The device work of a batch runs as one
+captured CUDA graph per static key (``STEPS``, the counterpart of the
+JAX pipeline's ``_PACKED_FN_CACHE``).  Work on the device is
+asynchronous: while it reconstructs batch k, the host entropy-decodes
+batch k+1.
 
 Counterpart of ``dryv_tpu/gop_pipeline.py``.  That module imports jax
 (through ``dryv_tpu.pipeline``), so the numpy helpers this one needs are
@@ -26,15 +27,16 @@ import functools
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .coeffs import KIND_I8
 
 from .device import resolve_device
 from .graphs import StepCache
-from .kernels.deblock import deblock, deblock_precompute, pack_params
+from .kernels.deblock import deblock, deblock_params
 from .kernels.densify import densify
 from .kernels.geometry import BLK, L, round_up
-from .kernels.transform import stage_a_residuals
+from .kernels.transform import stage_a
 from .kernels.wavefront import intra_recon, recon_inputs
 from .pipeline import _dbctl_of, decode_annexb_fast
 from .tables import chroma_qp, decoder_tables
@@ -260,15 +262,18 @@ def dense_rows(seg, npad, n):
     # one spare row at the end takes the overflow pad slots
     dense = torch.empty((F * npad + 1, L), dtype=torch.int16, device=dev)
     densify(seg["bmp"], seg["vals"], out=dense[:F * npad].view(F, npad, L))
-    # |v| > 127 corrections: an accumulating add (pads add 0 at 0)
-    fbase = torch.arange(F, device=dev)[:, None]
-    dense.view(-1).index_add_(
-        0, (seg["exc_idx"].long() + fbase * (npad * L)).reshape(-1),
-        seg["exc_delta"].reshape(-1))
-    # heavy MBs ship whole rows; pad slots (index npad) go to the spare
-    oi = seg["ovf_idx"].long()
-    rows = torch.where(oi < npad, oi + fbase * npad, F * npad)
-    dense.index_copy_(0, rows.reshape(-1), seg["ovf_rows"].reshape(-1, L))
+    with record_function("dense_rows_fixes"):
+        # |v| > 127 corrections: an accumulating add (pads add 0 at 0)
+        fbase = torch.arange(F, device=dev)[:, None]
+        dense.view(-1).index_add_(
+            0, (seg["exc_idx"].long() + fbase * (npad * L)).reshape(-1),
+            seg["exc_delta"].reshape(-1))
+        # heavy MBs ship whole rows; pad slots (index npad) go to the
+        # spare
+        oi = seg["ovf_idx"].long()
+        rows = torch.where(oi < npad, oi + fbase * npad, F * npad)
+        dense.index_copy_(0, rows.reshape(-1),
+                          seg["ovf_rows"].reshape(-1, L))
     return dense[:F * npad].view(F, npad, L)[:, :n]
 
 
@@ -307,19 +312,22 @@ class PackedGopDecoder(torch.nn.Module):
         [F, n, 19] (+ PCM samples) -> planes."""
         mb_w, mb_h = self.mb_w, self.mb_h
         tabs = self.tables
-        s = wire_syntax(i16, u8, mb_w, mb_h, self.c0, self.c1, tabs)
+        with record_function("wire_syntax"):
+            s = wire_syntax(i16, u8, mb_w, mb_h, self.c0, self.c1, tabs)
         if pcm_y is not None:
             s["pcm_y"], s["pcm_c"] = pcm_y, pcm_c
-        y_z, c_resid = stage_a_residuals(s, tabs)
-        y, cb, cr = intra_recon(*recon_inputs(s, y_z, c_resid), tabs,
-                                mb_w, mb_h)
+        with record_function("stage_a"):
+            yres, cres = stage_a(s, tabs)
+        with record_function("recon_inputs"):
+            ins = recon_inputs(s, yres, cres)
+        y, cb, cr = intra_recon(*ins, tabs, mb_w, mb_h)
         if not self.deblocked:
             return y, cb, cr
-        pre = deblock_precompute(
-            s["kind"], s["qp_y"], s["sid"], u8[..., 16],
-            u8[..., 17].to(torch.int32) - 12, u8[..., 18].to(torch.int32)
-            - 12, mb_w, mb_h, self.c0, self.c1, tabs)
-        return deblock(pack_params(pre), y, cb, cr, mb_w, mb_h)
+        with record_function("deblock_params"):
+            prm = deblock_params(s["kind"], s["qp_y"], s["sid"],
+                                 *dbctl(u8), mb_w, mb_h, self.c0, self.c1,
+                                 tabs)
+        return deblock(prm, y, cb, cr, mb_w, mb_h)
 
 
 # one captured step per key (device, mb_w, mb_h, F, deblocked, c0, c1, W,
@@ -331,9 +339,9 @@ STEPS = StepCache(max_keys=8)
 def wire_syntax(i16, u8, mb_w, mb_h, c0, c1, tabs):
     """The syntax dict stage A and B2 read, from dense coefficient rows
     i16 [F, n, 408] and the wire's per-MB bytes u8 [F, n, 19] (layout of
-    ``U8_STRIDE``): kind (the byte as shipped), qp_y/qp_cb/qp_cr, sid,
-    the intra modes, the coefficient fields and avail_a..d (a neighbour
-    is available iff it exists and shares the slice)."""
+    ``U8_STRIDE``): kind (the byte as shipped, int32), qp_y/qp_cb/qp_cr,
+    sid, the intra modes, the coefficient fields and avail_a..d (a
+    neighbour is available iff it exists and shares the slice)."""
     F, n = u8.shape[:2]
     qp_y = u8[..., 1].to(torch.int32)
     sid = u8[..., 14].to(torch.int32) | (u8[..., 15].to(torch.int32) << 8)
@@ -347,7 +355,7 @@ def wire_syntax(i16, u8, mb_w, mb_h, c0, c1, tabs):
     m4n = u8[..., 4:12]
     m8n = u8[..., 12:14]
     s = {
-        "kind": u8[..., 0],
+        "kind": u8[..., 0].to(torch.int32),
         "qp_y": qp_y,
         "qp_cb": chroma_qp(qp_y, c0, tabs["qpc_tab"]),
         "qp_cr": chroma_qp(qp_y, c1, tabs["qpc_tab"]),
@@ -364,6 +372,14 @@ def wire_syntax(i16, u8, mb_w, mb_h, c0, c1, tabs):
     for k, g in zip(("avail_a", "avail_b", "avail_c", "avail_d"), nbs):
         s[k] = (g == sid2).reshape(F, n)
     return s
+
+
+def dbctl(u8):
+    """The per-MB deblock control (disable_deblocking_filter_idc,
+    FilterOffsetA, FilterOffsetB) as int32 [F, n] from the wire's per-MB
+    bytes u8 [F, n, 19]."""
+    dis, offa, offb = u8[..., 16:19].to(torch.int32).unbind(-1)
+    return dis.contiguous(), offa - 12, offb - 12
 
 
 def _pcm_batch_rows(batch, sps, pps, F, n, n_threads):

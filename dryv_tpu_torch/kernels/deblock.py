@@ -7,9 +7,11 @@ and tC0 per edge.  Without motion inputs it is
 ``deblock_precompute_intra_jax`` (all-intra pictures: bS 4 on MB edges,
 3 inside); with them, the inter boundary strengths (1 and 2) come from
 coded-coefficient flags, motion vectors and reference keys per 4x4
-block.  The JAX package runs both in XLA, so this stays plain tensor
-code.  ``pack_params`` lays the parameters out as one uint8 row of 192
-bytes per MB in ``PRE_KEYS`` order.
+block.  The JAX package runs both in XLA inside its jitted steps.
+``pack_params`` lays the parameters out as one uint8 row of 192 bytes
+per MB in ``PRE_KEYS`` order.  Kernel B6 (``deblock_params``,
+``csrc/deblock_params.cu``) writes those rows directly, with no int32
+dict in between; its plain version is ``deblock_params_plain``.
 
 Kernel B3 (``csrc/deblock.cu``) replaces the Pallas kernel
 ``_build_db_kernel`` behind ``make_deblock_pallas``
@@ -194,6 +196,71 @@ def pack_params(pre):
     prm = torch.cat([pre[k].reshape(F, n, -1) for k in PRE_KEYS], -1)
     assert prm.shape[-1] == PRM_BYTES
     return prm.to(torch.uint8).contiguous()
+
+
+def deblock_params_plain(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h,
+                         chroma_off0, chroma_off1, tables, t8=None,
+                         nz4=None, mv=None, rs=None):
+    """Plain PyTorch version of B6: ``pack_params`` of
+    ``deblock_precompute`` on B6's inputs (``deblock_params``)."""
+    inter = ()
+    if mv is not None:
+        grid = (kind.shape[0], 4 * mb_h, 4 * mb_w)
+        inter = (t8, nz4.reshape(grid), mv[:, :, 0].reshape(*grid, 2),
+                 mv[:, :, 1].reshape(*grid, 2), rs[..., 0].reshape(grid),
+                 rs[..., 1].reshape(grid))
+    return pack_params(deblock_precompute(
+        kind, qp_y, sid, dis, offa, offb, mb_w, mb_h, chroma_off0,
+        chroma_off1, tables, *inter))
+
+
+def deblock_params(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h,
+                   chroma_off0, chroma_off1, tables, t8=None, nz4=None,
+                   mv=None, rs=None):
+    """B6: the uint8 [F, n, 192] parameter rows B3 reads, as
+    ``deblock_params_plain`` gives them.  kind (the native numbering),
+    qp_y, sid, dis, offa, offb: int32 [F, n] contiguous.  The inter
+    inputs, all or none: t8 int32 [F, n], nz4 bool or uint8 [F, 4*mb_h,
+    4*mb_w], mv int16 [F, 16n, 2, 2] (4x4 blocks in raster order over
+    the picture, list, component) and rs int8 [F, 16n, 4] (the reference
+    keys of lists 0 and 1 first, -1 = unused), all contiguous: the
+    packed I/P/B wire's layout.  Without them every MB must be intra.
+    Types and shapes are checked on every device; then CPU tensors take
+    the plain version, and CUDA tensors (contiguous) launch the kernel
+    (one launch per call) or raise."""
+    inter = (t8, nz4, mv, rs)
+    if any(t is None for t in inter) and any(t is not None for t in inter):
+        raise ValueError("deblock_params takes all inter inputs or none")
+    F, n = kind.shape
+    n4 = 16 * n
+    per_mb = (kind, qp_y, sid, dis, offa, offb)
+    tabs = [tables[k] for k in ("alpha", "beta", "tc0", "qpc_tab")]
+    if n != mb_w * mb_h:
+        raise ValueError(f"{n} MBs do not make {mb_w}x{mb_h}")
+    want = [(t, torch.int32, (F, n)) for t in per_mb + (t8,)] + [
+        (nz4, (torch.bool, torch.uint8), (F, 4 * mb_h, 4 * mb_w)),
+        (mv, torch.int16, (F, n4, 2, 2)), (rs, torch.int8, (F, n4, 4))] + [
+        (t, torch.int32, tuple(t.shape)) for t in tabs]
+    for t, dt, shape in want:
+        if t is not None and (t.dtype not in (dt if isinstance(dt, tuple)
+                                              else (dt,))
+                              or tuple(t.shape) != shape):
+            raise ValueError(f"B6 takes {dt} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if kind.device.type == "cpu":
+        return deblock_params_plain(kind, qp_y, sid, dis, offa, offb, mb_w,
+                                    mb_h, chroma_off0, chroma_off1, tables,
+                                    t8, nz4, mv, rs)
+    _build.check_cuda(*per_mb, *tabs, *(t for t in inter if t is not None))
+    prm = torch.empty((F, n, PRM_BYTES), dtype=torch.uint8,
+                      device=kind.device)
+    _build.call("dt_deblock_params", *per_mb, *inter, *tabs, prm, mb_w,
+                mb_h, F, chroma_off0, chroma_off1)
+    deblock_params.launches += 1
+    return prm
+
+
+deblock_params.launches = 0
 
 
 def _filt_luma(p3, p2, p1, p0, q0, q1, q2, q3, bs, alpha, beta, tc0):

@@ -1,11 +1,13 @@
-"""Stage A: inverse quantisation and inverse transforms (spec 8.5) in
-plain PyTorch int32.
+"""Stage A: inverse quantisation and inverse transforms (spec 8.5), and
+kernel B5.
 
 Counterpart of ``dryv_tpu/kernels/transform.py`` (``dequant4/8``,
 ``idct4/8``, ``i16_dc``, ``chroma_dc``, ``luma_residual_zrows``,
 ``chroma_residual_tiles``) and of ``stage_a_residuals`` in
 ``dryv_tpu/kernels/pallas_wavefront.py``.  The JAX package runs this
-outside any Pallas kernel, so it stays plain tensor code here.
+outside any Pallas kernel, where XLA fuses it into the jitted step; the
+port's step runs it as kernel B5 (``stage_a``, ``csrc/stage_a.cu``),
+whose plain version ``stage_a_plain`` is the tensor code below.
 
 The JAX version gets exact integers from float32 matmuls at
 ``Precision.HIGHEST``.  On the GPU a float32 matmul is exact only while
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..coeffs import KIND_I8, KIND_I16
 from ..tables import index_on
 
@@ -173,3 +176,65 @@ def stage_a_residuals(s, tables):
                               flat("chroma_ac", 2, 4, 16),
                               tables["ls4cb"], tables["ls4cr"])
     return y_z.reshape(F, n, 256), c.reshape(F, n, 2, 8, 8)
+
+
+# stage A's inputs: the per-MB fields (int32 [F, n]) and the level
+# segments of the dense coefficient rows (int16 [F, n, width])
+PER_MB = ("kind", "qp_y", "qp_cb", "qp_cr")
+LEVELS = (("luma_lv", 256), ("luma_dc", 16), ("chroma_dc", 8),
+          ("chroma_ac", 128))
+LS_KEYS = ("ls4y", "ls4cb", "ls4cr", "ls8y")
+
+
+def stage_a_plain(s, tables):
+    """Plain PyTorch version of B5: ``stage_a_residuals`` with the
+    residuals clamped to [-255, 255] as int16, the rows B2 reads
+    (clip(pred + r, 0, 255) is the same with r clamped, pred in
+    [0, 255]).  Returns (yres [F, n, 256], cres [F, n, 2, 8, 8])."""
+    y_z, c = stage_a_residuals(s, tables)
+    return (y_z.clamp(-255, 255).to(torch.int16),
+            c.clamp(-255, 255).to(torch.int16))
+
+
+def stage_a(s, tables):
+    """B5: stage A of every MB by its own kind, into B2's int16 residual
+    rows (``stage_a_plain``'s contract).  s holds kind, qp_y, qp_cb,
+    qp_cr (int32 [F, n]) and the level segments ``LEVELS`` (int16 [F, n,
+    width]); tables the LevelScale rows ``LS_KEYS`` (int32 [6, 16] /
+    [6, 64]).  Types and shapes are checked on every device; then CPU
+    tensors take the plain version, and CUDA tensors launch the kernel
+    (one launch per call) or raise.  The kernel takes the per-MB fields
+    and the lists contiguous, and the level segments with rows and
+    frames on 16-byte boundaries (e.g. column slices of the dense [F, n,
+    408] rows)."""
+    F, n = s["kind"].shape
+    dev = s["kind"].device
+    per_mb = [s[k] for k in PER_MB]
+    levels = [s[k] for k, _ in LEVELS]
+    ls = [tables[k] for k in LS_KEYS]
+    want = [(k, t, torch.int32, (F, n)) for k, t in zip(PER_MB, per_mb)] \
+        + [(k, t, torch.int16, (F, n, w))
+           for (k, w), t in zip(LEVELS, levels)] \
+        + [(k, t, torch.int32, (6, 64 if k == "ls8y" else 16))
+           for k, t in zip(LS_KEYS, ls)]
+    for k, t, dt, shape in want:
+        if t.dtype != dt or t.shape != shape:
+            raise ValueError(f"B5's {k} must be {dt} {list(shape)}, got "
+                             f"{t.dtype} {list(t.shape)}")
+    if dev.type == "cpu":
+        return stage_a_plain(s, tables)
+    _build.check_cuda(*per_mb, *ls)
+    for (k, _), t in zip(LEVELS, levels):
+        if t.device != dev or t.stride(2) != 1 or t.data_ptr() % 16 \
+                or t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(f"B5 reads {k} on {dev} in 16-byte words: "
+                             f"its rows must start on 16-byte boundaries")
+    yres = torch.empty((F, n, 256), dtype=torch.int16, device=dev)
+    cres = torch.empty((F, n, 2, 8, 8), dtype=torch.int16, device=dev)
+    _build.call("dt_stage_a", *per_mb, *levels, *ls, yres, cres, F, n,
+                *(st for t in levels for st in t.stride()[:2]))
+    stage_a.launches += 1
+    return yres, cres
+
+
+stage_a.launches = 0

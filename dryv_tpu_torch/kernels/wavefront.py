@@ -15,7 +15,7 @@ With ``halo`` the same kernel is B2b, the Pallas kernel's
 row reads the above, above-right and corner aprons from the bottom pixel
 rows of the band above (``dryv_tpu_torch.parallel.bands``).
 
-Inputs per MB (``recon_inputs`` builds them):
+Inputs per MB (``recon_inputs`` builds them from stage A's rows):
   meta  u8  [F, n, 32]   kind, i16 mode, chroma mode, avail a..d, 16
                          z-scan 4x4 modes, 4 8x8 modes (rows as
                          ``ROW_*`` of pallas_wavefront.py)
@@ -39,13 +39,14 @@ META_ROWS = 32
 ROW_KIND, ROW_I16M, ROW_CMODE, ROW_AV, ROW_M4, ROW_M8 = 0, 1, 2, 3, 7, 23
 
 
-def recon_inputs(s, y_z, c_resid):
-    """Stage-A outputs + syntax -> (meta, yres, cres) for B2.
+def recon_inputs(s, yres, cres):
+    """Stage A's rows (``transform.stage_a``: int16, clamped to [-255,
+    255]) + syntax -> (meta, yres, cres) for B2.
 
     s: [F, n, ...] integer tensors kind, i16_mode, chroma_mode,
     avail_a..d, modes4 [.,16], modes8 [.,4] and, for PCM batches, pcm_y
-    [.,256] (raster) and pcm_c [.,2,8,8].  Residuals are clipped to
-    [-255, 255], which keeps clip(pred + r, 0, 255) and fits int16."""
+    [.,256] (raster) and pcm_c [.,2,8,8], whose samples replace the
+    residual rows of the PCM MBs."""
     F, n = s["kind"].shape
     dev = s["kind"].device
     meta = torch.zeros((F, n, META_ROWS), dtype=torch.uint8, device=dev)
@@ -56,8 +57,6 @@ def recon_inputs(s, y_z, c_resid):
         meta[..., ROW_AV + i] = s[k].to(torch.uint8)
     meta[..., ROW_M4:ROW_M4 + 16] = s["modes4"].to(torch.uint8)
     meta[..., ROW_M8:ROW_M8 + 4] = s["modes8"].to(torch.uint8)
-    yres = y_z.clamp(-255, 255).to(torch.int16)
-    cres = c_resid.clamp(-255, 255).to(torch.int16)
     if "pcm_y" in s:
         pcm = (s["kind"] == KIND_PCM)
         pcm_z = s["pcm_y"].reshape(F, n, 256)[..., index_on("z2sp", dev)] \

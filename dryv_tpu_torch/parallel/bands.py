@@ -26,10 +26,11 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..graphs import Split
 from ..kernels.inter import mc_frame
-from ..kernels.transform import stage_a_residuals
+from ..kernels.transform import stage_a
 from ..kernels.wavefront import intra_recon, recon_inputs
 from ..pipeline import tables_for
 from ..syntax import stack_frames, syntax_tensors
@@ -205,8 +206,10 @@ class BandedGop:
                 with on_stream(streams[b]):
                     sg = {k: v[g * Fi:(g + 1) * Fi]
                           for k, v in syn[b].items()}
-                    ins = recon_inputs(sg, *stage_a_residuals(
-                        sg, self.tabs[lo + b]))
+                    with record_function("stage_a"):
+                        res = stage_a(sg, self.tabs[lo + b])
+                    with record_function("recon_inputs"):
+                        ins = recon_inputs(sg, *res)
                     if b == 0 and recv is not None:
                         halo[0], ready[0] = recv(g)
                     # only B2b reads the halo: stage A runs before the

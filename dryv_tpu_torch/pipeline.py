@@ -7,13 +7,13 @@ custom scaling matrices among them, and it is what
 ``Video.decode_frames(backend="jax")`` does.  Per picture: the C++
 entropy stage (``decode_annexb_fast``) or the Python one
 (``decode_annexb_tpu``) makes a ``FrameSyntax``; on the device, stage A
-(``kernels.transform``), kernel B2 with F = 1 and, for streams that
-enable it, the edge parameters and kernel B3.  The JAX package's XLA
-scan wavefront and deblock (``_build``) have no counterpart here: B2 and
-B3 and their plain versions do that job.  Its jit does: the device work
-of a picture runs as one captured CUDA graph per static key
-(``STEPS``), which takes the LevelScale lists as inputs, as ``_build``'s
-recon takes them as arguments.  ``entry`` is the counterpart of the
+(kernel B5), kernel B2 with F = 1 and, for streams that enable it, the
+edge parameters (kernel B6, ahead of the step) and kernel B3.  The JAX
+package's XLA scan wavefront and deblock (``_build``) have no
+counterpart here: B2 and B3 and their plain versions do that job.  Its
+jit does: the device work of a picture runs as one captured CUDA graph
+per static key (``STEPS``), which takes the LevelScale lists as inputs,
+as ``_build``'s recon takes them as arguments.  ``entry`` is the counterpart of the
 root ``__graft_entry__.py``'s ``entry()``: that step at 4x4 MBs with
 example arguments.
 """
@@ -23,12 +23,13 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .device import resolve_device
 from .graphs import StepCache
-from .kernels.deblock import deblock, deblock_precompute, pack_params
-from .kernels.geometry import LS4_FLAT, LS8_FLAT, PRE_KEYS
-from .kernels.transform import stage_a_residuals
+from .kernels.deblock import deblock, deblock_params
+from .kernels.geometry import LS4_FLAT, LS8_FLAT
+from .kernels.transform import LS_KEYS, stage_a
 from .kernels.wavefront import intra_recon, recon_inputs
 from .syntax import stack_frames, syntax_tensors
 from .tables import decoder_tables
@@ -134,33 +135,34 @@ def tables_for(device, ls4=None, ls8=None):
 
 def recon_syntax(s, tables, mb_w, mb_h, halo=None):
     """Syntax tensors [F, n, ...] (``syntax.syntax_tensors``) -> uint8
-    planes (y [F, 16*mb_h, 16*mb_w], cb, cr): stage A, then B2, or B2b
-    with `halo`.  The body of the JAX package's ``_build`` recon (without
-    its deblock) and of ``parallel/gop.py`` / ``parallel/bands.py``'s
-    per-shard step."""
-    y_z, c_resid = stage_a_residuals(s, tables)
-    return intra_recon(*recon_inputs(s, y_z, c_resid), tables, mb_w, mb_h,
-                       halo=halo)
+    planes (y [F, 16*mb_h, 16*mb_w], cb, cr): stage A (B5), then B2, or
+    B2b with `halo`.  The body of the JAX package's ``_build`` recon
+    (without its deblock) and of ``parallel/gop.py`` /
+    ``parallel/bands.py``'s per-shard step."""
+    with record_function("stage_a"):
+        yres, cres = stage_a(s, tables)
+    with record_function("recon_inputs"):
+        ins = recon_inputs(s, yres, cres)
+    return intra_recon(*ins, tables, mb_w, mb_h, halo=halo)
 
 
 def deblock_pre_of(fs, slice_id, headers, pps, device):
-    """Edge parameters of an intra picture (the PRE_KEYS dict of
-    [1, n, ...] tensors on `device`) from its syntax, the per-MB slice
-    ids and the slice headers' deblock control, as
-    ``dryv_tpu/pipeline.py`` :147-160 builds them."""
+    """Edge parameters of an intra picture, B3's uint8 [1, n, 192] rows
+    on `device` (kernel B6), from its syntax, the per-MB slice ids and
+    the slice headers' deblock control, as ``dryv_tpu/pipeline.py``
+    :147-160 builds them."""
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)[None]
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)) \
+            .to(device)[None]
 
     ctl = _dbctl_of(headers)[slice_id]
-    return deblock_precompute(
-        t(fs.kind), t(fs.qp_y), t(slice_id), t(ctl[:, 0]), t(ctl[:, 1]),
-        t(ctl[:, 2]), fs.mb_w, fs.mb_h, pps.chroma_qp_index_offset,
-        pps.second_chroma_qp_offset, tables_for(device))
+    with record_function("deblock_params"):
+        return deblock_params(
+            t(fs.kind), t(fs.qp_y), t(slice_id), t(ctl[:, 0]),
+            t(ctl[:, 1]), t(ctl[:, 2]), fs.mb_w, fs.mb_h,
+            pps.chroma_qp_index_offset, pps.second_chroma_qp_offset,
+            tables_for(device))
 
-
-# the LevelScale lists, the per-picture step's inputs after the syntax
-# tensors: ls4y, ls4cb, ls4cr [6,16] and ls8y [6,64] int32 rows
-LS_KEYS = ("ls4y", "ls4cb", "ls4cr", "ls8y")
 
 # one captured step per key (device, mb_w, mb_h, deblocked, the syntax
 # tensors' names, which PCM pictures extend): the counterpart of the
@@ -169,18 +171,17 @@ STEPS = StepCache(max_keys=8)
 
 
 def _recon_fn(tabs, mb_w, mb_h, names):
-    """fn(*syntax tensors in `names` order, ls4y, ls4cb, ls4cr, ls8y,
-    *PRE_KEYS params if deblocked) -> (y, cb, cr): stage A with the
-    LevelScale rows it is given and the other tables of `tabs`, B2 and
-    B3."""
+    """fn(*syntax tensors in `names` order, ls4y, ls4cb, ls4cr, ls8y
+    (``LS_KEYS``: [6,16] and [6,64] int32 rows), B3's parameter rows if
+    deblocked) -> (y, cb, cr): stage A with the LevelScale rows it is
+    given and the other tables of `tabs`, B2 and B3."""
     n, m = len(names), len(names) + len(LS_KEYS)
 
     def fn(*xs):
         t = dict(tabs, **dict(zip(LS_KEYS, xs[n:m])))
         y, cb, cr = recon_syntax(dict(zip(names, xs)), t, mb_w, mb_h)
         if len(xs) > m:
-            prm = pack_params(dict(zip(PRE_KEYS, xs[m:])))
-            y, cb, cr = deblock(prm, y, cb, cr, mb_w, mb_h)
+            y, cb, cr = deblock(xs[m], y, cb, cr, mb_w, mb_h)
         return y, cb, cr
     return fn
 
@@ -206,18 +207,19 @@ def reconstruct_frame(fs, ls4=None, ls8=None, deblock_pre=None,
 
     Counterpart of ``reconstruct_frame_jax`` (``dryv_tpu/pipeline.py``
     :61): stage A with the LevelScale lists ls4/ls8, B2 with F = 1, then
-    B3 when `deblock_pre` (``deblock_pre_of``) is given.  With `graph`
-    (the default) the syntax tensors, the lists and the edge parameters
-    are copied into the static inputs of the key's captured step, which
-    is replayed (one thread or stream at a time, ``StepCache.hold``);
-    pictures with other lists replay the same step."""
+    B3 when `deblock_pre` (B3's parameter rows, ``deblock_pre_of``) is
+    given.  With `graph` (the default) the syntax tensors, the lists and
+    the parameter rows are copied into the static inputs of the key's
+    captured step, which is replayed (one thread or stream at a time,
+    ``StepCache.hold``); pictures with other lists replay the same
+    step."""
     dev = resolve_device(device)
     s = syntax_tensors(stack_frames([fs]), "cpu" if graph else dev)
     names = tuple(sorted(s))
     lists = tables_for(dev, ls4, ls8)
     xs = [s[k] for k in names] + [lists[k] for k in LS_KEYS]
     if deblock_pre is not None:
-        xs += [deblock_pre[k] for k in PRE_KEYS]
+        xs.append(deblock_pre)
     y, cb, cr = _run_step(dev, fs.mb_w, fs.mb_h, names, xs, graph)
     return y[0].cpu().numpy(), cb[0].cpu().numpy(), cr[0].cpu().numpy()
 
@@ -252,9 +254,9 @@ def entry(device="cuda"):
         y, cb, cr = _run_step(dev, mb_w, mb_h, names, xs)
         return y[0], cb[0], cr[0]
 
-    ls = torch.from_numpy(LS4_FLAT).to(dev)
+    ls = torch.from_numpy(np.ascontiguousarray(LS4_FLAT)).to(dev)
     return fn, (syntax_tensors(stack_frames([fs]), dev), ls, ls, ls,
-                torch.from_numpy(LS8_FLAT).to(dev))
+                torch.from_numpy(np.ascontiguousarray(LS8_FLAT)).to(dev))
 
 
 def _level_scales(sps, pps):

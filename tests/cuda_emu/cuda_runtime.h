@@ -1,5 +1,6 @@
 // A CPU stand-in for the CUDA runtime, enough to run the port's kernels
-// under g++ in tests (tests/test_torch_inter_emulated.py).  A launch runs
+// under g++ in tests (tests/test_torch_inter_emulated.py,
+// tests/test_torch_stage_a_emulated.py).  A launch runs
 // its grid one block at a time, a thread of the block per std::thread;
 // __syncthreads is a barrier of the block, and each warp's collectives
 // (__syncwarp, __ballot_sync, __any_sync, __all_sync) meet at a barrier
@@ -8,10 +9,12 @@
 #pragma once
 #include <barrier>
 #include <cstdint>
+#include <cstdlib>
 #include <memory>
 #include <thread>
 #include <vector>
 
+using std::abs;
 using std::max;
 using std::min;
 

@@ -14,7 +14,8 @@ from test_pallas_wavefront import _random_syntax
 
 def port_recon(s, y_resid, c_resid, mb_w, mb_h, tables=None, halo=None):
     """Spatial residual tiles as the Pallas recon takes them -> planes
-    through recon_inputs + intra_recon (B2b with `halo`) on the CPU."""
+    through stage A's clamp to B2's int16 rows, recon_inputs and
+    intra_recon (B2b with `halo`) on the CPU."""
     from dryv_tpu.coeffs import KIND_I8
 
     F, n = s["kind"].shape
@@ -23,8 +24,9 @@ def port_recon(s, y_resid, c_resid, mb_w, mb_h, tables=None, halo=None):
                    sp[..., Z2SP])
     st = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in s.items()}
     st["pcm_y"] = st["pcm_y"].reshape(F, n, 256)
-    meta, yres, cres = recon_inputs(st, torch.from_numpy(y_z),
-                                    torch.from_numpy(c_resid))
+    meta, yres, cres = recon_inputs(
+        st, *(torch.from_numpy(r).clamp(-255, 255).to(torch.int16)
+              for r in (y_z, c_resid)))
     return intra_recon(meta, yres, cres, tables or decoder_tables("cpu"),
                        mb_w, mb_h, halo=halo)
 
