@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py --compare DIR [DIR ...]   # also time earlier
-                                                    # B1, B3, B4
+                                                    # B1, B3-B6
     python3 chip_smoke.py --multichip   # only the sharded paths over the
                                         # first four cards (two or more)
 
@@ -13,7 +13,9 @@ PyTorch version at the shapes its paths give it (1080p batches of 16
 pictures, and of 1 for the per-picture and I/P/B paths' intra wavefront
 and deblock and the I/P/B path's densify; one band of 120x17 MBs x 4
 for the banded wavefront; densify at W = 32, 96 and 256; stage A (B5) on random kinds, QPs 0-51,
-chroma offsets -12 and +12 and random LevelScale lists; the deblock parameters (B6) with random
+chroma offsets -12 and +12 and random LevelScale lists, its levels as column slices of the dense
+rows and as separate segments, and with the coded flags (nz4) it writes for the I/P/B step; the
+deblock parameters (B6) with random
 slices and disable_deblocking_filter_idc 0/1/2 and on an inter motion field; deblock with every
 edge on, with random slices and disable_deblocking_filter_idc, and on inter edge parameters;
 motion compensation at 120x68 MBs over stacks of 3 pictures, P and B,
@@ -98,8 +100,10 @@ launches from there.  B5 must show on every path's step, B6 on every
 deblocked one, and ``entry()``'s replay must hold fewer than 100 device
 activities.  The same trace splits each step's device time by part:
 eager runs of the steps, the device time each ``torch.profiler`` range
-of ``dryv_tpu_torch.kernels.RANGES`` launched.  It times the kernels, the
-end-to-end batched decode eager and graphed in turns, the device span of
+of ``dryv_tpu_torch.kernels.RANGES`` launched; a range whose work moved
+into a kernel (``GONE_RANGES``: nz4, now B5's) must launch nothing.
+It times the kernels, the end-to-end batched decode eager and graphed in
+turns, the device span of
 a batch of 16 deblocked pictures, the per-picture decode eager and
 graphed, the sharded paths eager and graphed in turns (the band pipeline beside
 the unbanded wavefront with the syntax on the card, whole calls, the
@@ -112,16 +116,20 @@ cudaGraphLaunch calls (CPU-activity torch.profiler traces, after the
 census) and its captured steps (keys, capture ms, the MiB of their
 graph pool).  With --compare DIR [DIR ...]
 (directories outside the repo's sources, each holding an earlier tree's
-``densify.cu``, ``deblock.cu`` or ``inter_mc.cu``, any of them, with
-the ``common.cuh`` they include; densify and deblock with their C
-entries as they were before B3 took a scratch argument, inter_mc with
-today's) it also builds those kernels (one nvcc per source, all at
-once), prints their ptxas report, and times them and the current ones
-in turns (old, new, new, old; B1 and B3 of the first DIR that holds
-them, B4 of every DIR): B4 in every case above and on every real
-picture beside its bound, with sums per stream and over the pictures
-under 90% full-pel MBs.  Every timing line ends with the card's
-``nvidia-smi`` name and power limit.  Any failure ends the run with a
+``densify.cu``, ``deblock.cu``, ``inter_mc.cu``, ``stage_a.cu`` or
+``deblock_params.cu``, any of them, with the ``common.cuh`` they
+include; densify and deblock with their C entries as they were before
+B3 took a scratch argument, inter_mc with today's, stage_a and
+deblock_params as B5 and B6 first had them) it also builds those
+kernels (one nvcc per source, all at once), prints their ptxas report,
+and times them and the current ones in turns (old, new, new, old; B1,
+B3, B5 and B6 of the first DIR that holds them, at each of their shapes
+above, bit-exact to the current ones; B4 of every DIR): B4 in every
+case above and on every real picture beside its bound, with sums per
+stream and over the pictures under 90% full-pel MBs.  It prints the
+registers, shared memory, stack and spills ptxas reports for B5 and B6.
+Every timing line ends with the card's ``nvidia-smi`` name and power
+limit.  Any failure ends the run with a
 non-zero exit and no result line.  The last line is {"ok": true,
 "device": {...}}; the line before it holds the per-kernel JSON.
 """
@@ -136,6 +144,7 @@ import glob
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -146,6 +155,10 @@ import numpy as np
 import torch
 
 F = 16           # pictures per batch, as the benchmark runs
+# profiler ranges of earlier trees whose work moved into a kernel: the
+# census holds each at 0 device activities (nz4: the I/P/B step's coded
+# flags, written by B5 since it took them over)
+GONE_RANGES = ("nz4",)
 ONE_CARD = ["cuda:0"] * 4   # the sharded paths' slots on one card
 MB_W, MB_H = 120, 68
 REPS = 3    # runs of each end-to-end timing, in turns
@@ -284,6 +297,32 @@ def bound_ms(*tensors):
     """Least time to move the tensors' bytes once at the card's rate."""
     return sum(t.numel() * t.element_size() for t in tensors) \
         / HBM_BYTES_PER_S * 1e3
+
+
+def ptxas_report(log, kernels=("stage_a_kernel", "deblock_params_kernel")):
+    """One line per entry function of `log` (nvcc -Xptxas -v) whose name
+    holds one of `kernels`: registers, static shared memory, stack frame
+    and spills (B6's intra and inter forms by their template argument)."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in kernels if k in m.group(1)), None)
+            if name and "ILb" in m.group(1):
+                name += " <inter>" if "ILb1E" in m.group(1) else " <intra>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            stack, spill = m.groups()
+            continue
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem|$)", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, "
+                       f"{m.group(2) or 0} B static shared, {stack} B "
+                       f"stack, {spill} B spill stores")
+            name = None
+    return "; ".join(out)
 
 
 @functools.cache
@@ -437,19 +476,23 @@ def inter_edge_params(rng, mb_w, mb_h, tables, dev):
 # The C entries of the earlier kernels --compare builds: source, name,
 # argument kinds ("p" pointer, "i" int; the stream follows).  densify.cu
 # and deblock.cu as the trees before B3 took a scratch argument had them,
-# inter_mc.cu as every tree since B4 came has it.
+# inter_mc.cu as every tree since B4 came has it, stage_a.cu and
+# deblock_params.cu as B5 and B6 first came (before B5 wrote nz4).
 OLD_ENTRIES = {"densify.cu": ("dt_densify", "pppii"),
                "deblock.cu": ("dt_deblock", "ppppiii"),
-               "inter_mc.cu": ("dt_inter_mc", "p" * 14 + "i" * 10)}
+               "inter_mc.cu": ("dt_inter_mc", "p" * 14 + "i" * 10),
+               "stage_a.cu": ("dt_stage_a", "p" * 14 + "i" * 10),
+               "deblock_params.cu": ("dt_deblock_params", "p" * 15 + "i" * 5)}
 
 
 def old_kernels(src_dir, label):
-    """Builds those of B1, B3 and B4 that an earlier tree's sources in
-    ``src_dir`` hold (``densify.cu``, ``deblock.cu``, ``inter_mc.cu``,
-    with the ``common.cuh`` they include) into one library named after
-    `label` and returns ({"densify": fn, "deblock": fn, "inter_mc": fn},
-    those built, with the current wrappers' arguments and results;
-    nvcc's ptxas report)."""
+    """Builds those of B1, B3, B4, B5 and B6 that an earlier tree's
+    sources in ``src_dir`` hold (``densify.cu``, ``deblock.cu``,
+    ``inter_mc.cu``, ``stage_a.cu``, ``deblock_params.cu``, with the
+    ``common.cuh`` they include) into one library named after `label` and
+    returns ({"densify": fn, "deblock": fn, "inter_mc": fn, "stage_a":
+    fn, "deblock_params": fn}, those built, with the current wrappers'
+    arguments and results (B5 without nz4); nvcc's ptxas report)."""
     from pathlib import Path
 
     from dryv_tpu_torch import _build
@@ -509,9 +552,33 @@ def old_kernels(src_dir, label):
             rs0.stride(0), 1 if rs1 is None else 2, mode)
         return pred_y, pred_c
 
+    def stage_a(s, tables):
+        from dryv_tpu_torch.kernels.transform import LEVELS, LS_KEYS, PER_MB
+
+        F, n = s["kind"].shape
+        dev = s["kind"].device
+        levels = [s[k] for k, _ in LEVELS]
+        yres = torch.empty((F, n, 256), dtype=torch.int16, device=dev)
+        cres = torch.empty((F, n, 2, 8, 8), dtype=torch.int16, device=dev)
+        run("dt_stage_a", *(s[k] for k in PER_MB), *levels,
+            *(tables[k] for k in LS_KEYS), yres, cres, F, n,
+            *(st for t in levels for st in t.stride()[:2]))
+        return yres, cres
+
+    def deblock_params(kind, qp_y, sid, dis, offa, offb, mb_w, mb_h, c0, c1,
+                       tables, t8=None, nz4=None, mv=None, rs=None):
+        F, n = kind.shape
+        prm = torch.empty((F, n, 192), dtype=torch.uint8, device=kind.device)
+        run("dt_deblock_params", kind, qp_y, sid, dis, offa, offb, t8, nz4,
+            mv, rs, *(tables[k] for k in ("alpha", "beta", "tc0", "qpc_tab")),
+            prm, mb_w, mb_h, F, c0, c1)
+        return prm
+
     made = {"densify.cu": ("densify", densify),
             "deblock.cu": ("deblock", deblock),
-            "inter_mc.cu": ("inter_mc", inter_mc)}
+            "inter_mc.cu": ("inter_mc", inter_mc),
+            "stage_a.cu": ("stage_a", stage_a),
+            "deblock_params.cu": ("deblock_params", deblock_params)}
     return dict(made[k] for k in present), log
 
 
@@ -533,6 +600,9 @@ def earlier_builds(dirs):
         built = list(pool.map(old_kernels, dirs, labels))
     for label, d, (_, log) in zip(labels, dirs, built):
         print(f"ptxas of the earlier kernels of {label} ({d}):\n{log}")
+        if ptxas_report(log):
+            print(f"ptxas of the earlier B5 and B6 of {label}: "
+                  f"{ptxas_report(log)}")
     return {label: fns for label, (fns, _) in zip(labels, built)}
 
 
@@ -588,7 +658,8 @@ def device_kernels_in_profile(segments, names):
     seg_ev = {e.name[len("segment "):]: e for e in evs
               if e.device_type == cpu and e.name.startswith("segment ")}
     starts = {k: e.time_range.start for k, e in seg_ev.items()}
-    ranges = [e for e in evs if e.device_type == cpu and e.name in RANGES]
+    ranges = [e for e in evs if e.device_type == cpu
+              and e.name in RANGES + GONE_RANGES]
 
     def launched(e):
         """The device activities launched inside CPU event e and its
@@ -1199,8 +1270,13 @@ def main():
     print(f"build: C++ host library {time.perf_counter() - t0:.2f} s "
           f"(g++, one process per source)  [{card}]")
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _build.build(verbose=True)
+    print(buf.getvalue())
     _build.lib()
+    print(f"ptxas of B5 and B6 (B5's ring and tiles are dynamic shared "
+          f"memory): {ptxas_report(buf.getvalue())}  [{card}]")
     print(f"build: CUDA kernels {time.perf_counter() - t0:.2f} s "
           f"(nvcc, sm_90a, one process per source)  [{card}]")
     old = {}       # B1 and B3 of the first DIR that holds them
@@ -1341,9 +1417,14 @@ def main():
                      lambda: cuda_ms(lambda: densify(bmp, vals), 20), 20)
 
     # B5 at the batched path's shape (F = 16, levels as column slices of
-    # the dense [F, 8192, 408] rows) and at F = 1: random kinds (I4, I8,
-    # I16, PCM), QP 0..51, chroma QP offsets -12 and +12, random
-    # LevelScale lists of each list, levels in [-64, 64]
+    # the dense [F, 8192, 408] rows: one bulk copy a tile) and at F = 1
+    # (the per-picture and I/P/B paths), each also on separate contiguous
+    # segments (the per-picture syntax: one bulk copy a segment): random
+    # kinds (I4, I8, I16, PCM), QP 0..51, chroma QP offsets -12 and +12,
+    # random LevelScale lists of each list, levels in [-64, 64] with half
+    # the 4x4 luma blocks all 0; at F = 1 also with the coded flags nz4
+    # (the I/P/B step's call).  With an earlier B5 (--compare), each
+    # shape in turns with it, bit-exact to it
     n_mb = MB_W * MB_H
     rl = np.random.default_rng(12)
     w4 = [level_scale_4x4(rl.integers(4, 64, (4, 4))) for _ in range(3)]
@@ -1353,8 +1434,10 @@ def main():
     for key, nf in (("stage_a", F), ("stage_a_f1", 1)):
         qp = torch.from_numpy(rng.integers(0, 52, (nf, n_mb))
                               .astype(np.int32)).to(dev)
-        dense = torch.from_numpy(rng.integers(-64, 65, (nf, npad, 408))
-                                 .astype(np.int16)).to(dev)
+        lv = rng.integers(-64, 65, (nf, npad, 408))
+        lv[..., :256].reshape(nf, npad, 16, 16)[
+            rng.random((nf, npad, 16)) < 0.5] = 0
+        dense = torch.from_numpy(lv.astype(np.int16)).to(dev)
         sa = {"kind": torch.from_numpy(rng.integers(0, 4, (nf, n_mb))
                                        .astype(np.int32)).to(dev),
               "qp_y": qp,
@@ -1364,19 +1447,40 @@ def main():
         for k, width in LEVELS:
             sa[k] = dense[:, :n_mb, col:col + width]
             col += width
+        b5_cases[key] = sa
+        b5_cases[f"{key} separate"] = {k: v.contiguous()
+                                       for k, v in sa.items()}
+    for key, sa in b5_cases.items():
         got = stage_a(sa, lists_a)
         err = max_err(got, stage_a_plain(sa, lists_a))
-        b5_cases[key] = sa
-        record(key, "dryv_tpu_torch/csrc/stage_a.cu",
-               "dryv_tpu/kernels/pallas_wavefront.py:641", err,
-               cuda_ms(lambda: stage_a(sa, lists_a), 20),
-               cuda_ms(lambda: stage_a_plain(sa, lists_a), 3),
-               bound_ms(*sa.values(), *got))
+        ms = cuda_ms(lambda: stage_a(sa, lists_a), 20)
+        plain = cuda_ms(lambda: stage_a_plain(sa, lists_a), 3)
+        bound = bound_ms(*sa.values(), *got)
+        if key.endswith("separate"):
+            report(f"{key} (segments apart)", err, ms, plain, bound)
+        else:
+            record(key, "dryv_tpu_torch/csrc/stage_a.cu",
+                   "dryv_tpu/kernels/pallas_wavefront.py:641", err, ms,
+                   plain, bound)
+        if "stage_a" in old:
+            if max_err(old["stage_a"](sa, lists_a), got):
+                fail(f"{key}: the earlier B5 and the current differ")
+            in_turns(f"{key}", "B5",
+                     lambda: cuda_ms(lambda: old["stage_a"](sa, lists_a), 20),
+                     lambda: cuda_ms(lambda: stage_a(sa, lists_a), 20), 20)
+    sa = b5_cases["stage_a_f1"]
+    got = stage_a(sa, lists_a, MB_W)
+    report(f"stage_a_f1 with nz4 ({got[2].float().mean():.1%} of 4x4 "
+           f"blocks coded)", max_err(got, stage_a_plain(sa, lists_a, MB_W)),
+           cuda_ms(lambda: stage_a(sa, lists_a, MB_W), 20),
+           cuda_ms(lambda: stage_a_plain(sa, lists_a, MB_W), 3),
+           bound_ms(*sa.values(), *got))
 
     # B6 at F = 16 and F = 1, intra (random kinds, QPs, sorted slice ids
     # with disable_deblocking_filter_idc 0/1/2 per MB, filter offsets up
     # to +-12, chroma QP offsets 12 and -12), and at F = 1 on the I/P/B
-    # path's inter field (``inter_edge_inputs``: bS 1 and 2)
+    # path's inter field (``inter_edge_inputs``: bS 1 and 2).  With an
+    # earlier B6 (--compare), each in turns with it, bit-exact to it
     b6_cases = {}
     for key, nf in (("deblock_params", F), ("deblock_params_f1", 1)):
         def r32(lo, hi):
@@ -1395,6 +1499,14 @@ def main():
         plain = cuda_ms(lambda: deblock_params_plain(*a6, **ex), 3)
         bound = bound_ms(*per_mb, *ex.values(), got)
         bs = sorted(torch.unique(got[..., :16]).tolist())
+        if "deblock_params" in old:
+            if max_err([old["deblock_params"](*a6, **ex)], [got]):
+                fail(f"{key}: the earlier B6 and the current differ")
+            in_turns(f"{key}", "B6",
+                     lambda: cuda_ms(lambda: old["deblock_params"](*a6, **ex),
+                                     20),
+                     lambda: cuda_ms(lambda: deblock_params(*a6, **ex), 20),
+                     20)
         if key == "deblock_params_f1":
             report(f"deblock_params at F = 1, intra (luma vertical bS "
                    f"{bs})", err, ms, plain, bound)
@@ -2826,6 +2938,13 @@ def main():
               + f"; all device activities {summed / per:.4f} ms summed "
               f"({n_act / per:.1f}), {(n_act - in_ranges) / per:.1f} of "
               f"them outside the ranges  [{card}]")
+        for g in GONE_RANGES:
+            if t["ranges"].get(g, (0.0, 0))[1]:
+                fail(f"the {label} still launches device work in a range "
+                     f"named {g}")
+    print(f"ranges {', '.join(GONE_RANGES)}: 0 device activities in every "
+          f"step (gone from kernels.RANGES; the I/P/B step's coded flags "
+          f"come out of B5)  [{card}]")
     for f in host_side:
         f()
 

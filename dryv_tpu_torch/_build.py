@@ -34,7 +34,7 @@ ENTRIES = {
     "dt_deblock": "pppppiii",
     "dt_inter_mc": "p" * 14 + "i" * 10,
     "dt_peer_copy": "ppi",
-    "dt_stage_a": "p" * 14 + "i" * 10,
+    "dt_stage_a": "p" * 15 + "i" * 11,
     "dt_deblock_params": "p" * 15 + "i" * 5,
 }
 

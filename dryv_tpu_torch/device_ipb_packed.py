@@ -46,7 +46,7 @@ from .kernels.geometry import BLK, round_up
 from .kernels.inter import mc_frame
 from .kernels.transform import luma_residual_raster, stage_a
 from .kernels.wavefront import intra_recon, recon_inputs
-from .tables import decoder_tables, index_on
+from .tables import decoder_tables
 
 _IPB_SPEC = (("bmp", np.uint8, "npad,51"),
              ("vals", np.int8, "npad,W"),
@@ -137,7 +137,13 @@ class PackedPictureDecoder(torch.nn.Module):
             s["kind"] = torch.where(inter, torch.where(
                 t8 == 1, KIND_I8, KIND_I4).to(torch.int32), kind)
         with record_function("stage_a"):
-            y_z, c_resid = stage_a(s, tabs)
+            # B5 also writes the deblocked picture's coded flags per 4x4
+            # block (nz4), from the densified levels: rows are exact
+            # zeros for uncoded and skip blocks, and an inter MB with the
+            # 8x8 transform is I8 here, so its blocks take their
+            # quadrant's flag
+            y_z, c_resid, *nz4 = stage_a(s, tabs,
+                                         mb_w if deblocked else None)
         mv, rsri = g["mv"], g["rsri"]
         if nlists:
             wp = {"mode": wp_mode, "ri0": rsri[:, 2], "ri1": rsri[:, 3],
@@ -158,24 +164,11 @@ class PackedPictureDecoder(torch.nn.Module):
             ins = recon_inputs(s, y_z, c_resid)
         y, cb, cr = intra_recon(*ins, tabs, mb_w, mb_h)
         if deblocked:
-            # nz per 4x4 block from the densified levels (rows are exact
-            # zeros for uncoded and skip blocks); 8x8 MBs take their
-            # quadrant's flag; z-scan -> raster block grid
-            with record_function("nz4"):
-                lv = lanes[0, :, :256]
-                nz_z = torch.where(
-                    ((t8 == 1) | (kind == KIND_I8))[0, :, None],
-                    (lv.view(n, 4, 64) != 0).any(-1)
-                    .repeat_interleave(4, 1),
-                    (lv.view(n, 16, 16) != 0).any(-1))
-                nz4 = nz_z[:, index_on("p2z", lv.device)] \
-                    .view(mb_h, mb_w, 4, 4).permute(0, 2, 1, 3) \
-                    .reshape(4 * mb_h, 4 * mb_w)
             with record_function("deblock_params"):
                 prm = deblock_params(
                     kind, s["qp_y"], s["sid"], *dbctl(u8), mb_w, mb_h,
-                    chroma_off0, chroma_off1, tabs, t8,
-                    nz4.view(1, 4 * mb_h, 4 * mb_w), mv[None], rsri[None])
+                    chroma_off0, chroma_off1, tabs, t8, nz4[0], mv[None],
+                    rsri[None])
             y, cb, cr = deblock(prm, y, cb, cr, mb_w, mb_h)
         return y[0], cb[0], cr[0]
 

@@ -186,27 +186,73 @@ LEVELS = (("luma_lv", 256), ("luma_dc", 16), ("chroma_dc", 8),
 LS_KEYS = ("ls4y", "ls4cb", "ls4cr", "ls8y")
 
 
-def stage_a_plain(s, tables):
+def coded_blocks_plain(kind, luma_lv, mb_w):
+    """The coded flag of every 4x4 luma block, as B6 reads it: nz4
+    uint8 [F, 4 n / mb_w, 4 mb_w] (raster over the picture) from kind
+    [F, n] and the levels luma_lv [F, n, 256] in storage order.  A block
+    is coded when its 16 levels are not all 0; an I8 MB's four blocks of
+    a quadrant take the quadrant's 64 (the expression of
+    ``dryv_tpu/device_ipb_packed.py`` with the transform-8x8 flag folded
+    into kind, as stage A's kinds have it)."""
+    F, n = kind.shape
+    mb_h = n // mb_w
+    lv = luma_lv.reshape(F, n, 256) != 0
+    nz_z = torch.where((kind == KIND_I8)[..., None],
+                       lv.view(F, n, 4, 64).any(-1).repeat_interleave(4, -1),
+                       lv.view(F, n, 16, 16).any(-1))
+    return nz_z[..., index_on("p2z", kind.device)] \
+        .view(F, mb_h, mb_w, 4, 4).permute(0, 1, 3, 2, 4) \
+        .reshape(F, 4 * mb_h, 4 * mb_w).to(torch.uint8)
+
+
+def stage_a_plain(s, tables, mb_w=None):
     """Plain PyTorch version of B5: ``stage_a_residuals`` with the
     residuals clamped to [-255, 255] as int16, the rows B2 reads
     (clip(pred + r, 0, 255) is the same with r clamped, pred in
-    [0, 255]).  Returns (yres [F, n, 256], cres [F, n, 2, 8, 8])."""
+    [0, 255]).  Returns (yres [F, n, 256], cres [F, n, 2, 8, 8]), and
+    with mb_w also ``coded_blocks_plain``'s nz4."""
     y_z, c = stage_a_residuals(s, tables)
-    return (y_z.clamp(-255, 255).to(torch.int16),
-            c.clamp(-255, 255).to(torch.int16))
+    out = (y_z.clamp(-255, 255).to(torch.int16),
+           c.clamp(-255, 255).to(torch.int16))
+    if mb_w is None:
+        return out
+    return out + (coded_blocks_plain(s["kind"], s["luma_lv"], mb_w),)
 
 
-def stage_a(s, tables):
+def _check_level_layout(levels, dev):
+    """Raises unless the level segments take one of B5's two layouts: the
+    column slices 0:256, 256:272, 272:280, 280:408 of one dense [F, npad,
+    408] int16 tensor, or each segment with contiguous rows; in both,
+    segments and frames start on 16-byte boundaries (B5 reads them by
+    bulk copies)."""
+    base = levels[0]
+    dense = all(t.device == dev and t.stride() == (base.stride(0), 408, 1)
+                and t.data_ptr() == base.data_ptr() + 2 * col
+                for t, col in zip(levels, (0, 256, 272, 280)))
+    apart = all(t.device == dev and t.stride()[1:] == (w, 1)
+                for t, (_, w) in zip(levels, LEVELS))
+    if not (dense or apart) or any(t.data_ptr() % 16 or t.stride(0) % 8
+                                   for t in levels):
+        raise ValueError(
+            "B5 takes its levels as the column slices of one dense [F, "
+            "npad, 408] tensor or as segments with contiguous rows, frames "
+            f"on 16-byte boundaries, on {dev}; got strides "
+            f"{[t.stride() for t in levels]}")
+
+
+def stage_a(s, tables, mb_w=None):
     """B5: stage A of every MB by its own kind, into B2's int16 residual
     rows (``stage_a_plain``'s contract).  s holds kind, qp_y, qp_cb,
     qp_cr (int32 [F, n]) and the level segments ``LEVELS`` (int16 [F, n,
     width]); tables the LevelScale rows ``LS_KEYS`` (int32 [6, 16] /
-    [6, 64]).  Types and shapes are checked on every device; then CPU
-    tensors take the plain version, and CUDA tensors launch the kernel
-    (one launch per call) or raise.  The kernel takes the per-MB fields
-    and the lists contiguous, and the level segments with rows and
-    frames on 16-byte boundaries (e.g. column slices of the dense [F, n,
-    408] rows)."""
+    [6, 64]).  With mb_w (n MBs make rows of mb_w) it also returns the
+    coded flags nz4 uint8 [F, 4 n / mb_w, 4 mb_w] that B6 reads.  Types
+    and shapes are checked on every device; then CPU tensors take the
+    plain version, and CUDA tensors launch the kernel (one launch per
+    call) or raise.  The kernel takes the per-MB fields and the lists
+    contiguous, and the level segments as ``_check_level_layout`` says:
+    it reads a tile of MBs in one copy from the dense rows, or in one
+    copy a segment."""
     F, n = s["kind"].shape
     dev = s["kind"].device
     per_mb = [s[k] for k in PER_MB]
@@ -221,20 +267,20 @@ def stage_a(s, tables):
         if t.dtype != dt or t.shape != shape:
             raise ValueError(f"B5's {k} must be {dt} {list(shape)}, got "
                              f"{t.dtype} {list(t.shape)}")
+    if mb_w is not None and (mb_w <= 0 or n % mb_w):
+        raise ValueError(f"B5's nz4: {n} MBs do not make rows of {mb_w}")
     if dev.type == "cpu":
-        return stage_a_plain(s, tables)
+        return stage_a_plain(s, tables, mb_w)
     _build.check_cuda(*per_mb, *ls)
-    for (k, _), t in zip(LEVELS, levels):
-        if t.device != dev or t.stride(2) != 1 or t.data_ptr() % 16 \
-                or t.stride(0) % 8 or t.stride(1) % 8:
-            raise ValueError(f"B5 reads {k} on {dev} in 16-byte words: "
-                             f"its rows must start on 16-byte boundaries")
+    _check_level_layout(levels, dev)
     yres = torch.empty((F, n, 256), dtype=torch.int16, device=dev)
     cres = torch.empty((F, n, 2, 8, 8), dtype=torch.int16, device=dev)
-    _build.call("dt_stage_a", *per_mb, *levels, *ls, yres, cres, F, n,
-                *(st for t in levels for st in t.stride()[:2]))
+    nz4 = None if mb_w is None else torch.empty(
+        (F, 4 * (n // mb_w), 4 * mb_w), dtype=torch.uint8, device=dev)
+    _build.call("dt_stage_a", *per_mb, *levels, *ls, yres, cres, nz4, F, n,
+                mb_w or 1, *(st for t in levels for st in t.stride()[:2]))
     stage_a.launches += 1
-    return yres, cres
+    return (yres, cres) if nz4 is None else (yres, cres, nz4)
 
 
 stage_a.launches = 0

@@ -8,8 +8,10 @@ path's inter MBs as I4/I8 by their transform-8x8 flag, its kind 11
 included), QP 0 to 51 with both ends present, flat and random LevelScale
 lists, and chroma QP offsets of -12 and +12.  Levels stay small enough
 that the JAX matmuls are exact (|acc| < 2^24), as in
-tests/test_torch_transform.py.  B6's plain version
-``deblock_params_plain`` on the packed I/P/B wire's layout equals
+tests/test_torch_transform.py; its coded flags per 4x4 block (nz4, asked
+for by the I/P/B step) equal the step's jnp expression in the JAX
+package on the wire's native kinds and transform-8x8 bits.  B6's plain
+version ``deblock_params_plain`` on the packed I/P/B wire's layout equals
 ``pack_params`` of ``deblock_precompute_intra_jax`` (all-intra) and of
 ``deblock_precompute_jax`` (inter boundary strengths), with sorted
 random slices under disable_deblocking_filter_idc 0/1/2 and filter
@@ -45,15 +47,28 @@ def _lists(rng, custom):
             .astype(np.int32))
 
 
-def stage_a_inputs(rng, F, n, amp=32):
-    """Random stage A syntax [F, n, ...] (numpy): kinds from the I/P/B
-    path's remap of native kinds 0..11 (inter 4..10 -> I8 with the 8x8
-    flag, else I4), QP 0..51 with 0 and 51 present, chroma QPs from
-    offsets -12 / +12, levels in [-amp, amp]."""
+def wire_kinds(rng, F, n):
+    """Native kinds 0..11 [F, n], the kind byte's transform-8x8 bit as
+    the packed I/P/B wire sets it (inter MBs at random, I8 MBs at random,
+    0 elsewhere: intra folds it into the kind), and stage A's kinds from
+    them as the I/P/B step remaps them (inter 4..10 -> I8 with the bit,
+    else I4)."""
     native = rng.integers(0, 12, (F, n))
     t8 = rng.integers(0, 2, (F, n))
     inter = (native >= 4) & (native <= 10)
     kind = np.where(inter, np.where(t8 == 1, KIND_I8, KIND_I4), native)
+    return native, np.where(inter | (native == KIND_I8), t8, 0), kind
+
+
+def stage_a_inputs(rng, F, n, amp=32, sparse=False):
+    """Random stage A syntax [F, n, ...] (numpy): kinds from the I/P/B
+    path's remap of native kinds 0..11 (``wire_kinds``), QP 0..51 with 0
+    and 51 present, chroma QPs from offsets -12 / +12, levels in [-amp,
+    amp].  With `sparse`, luma 4x4 blocks are all 0 at random (p 0.6)
+    and whole 8x8 quadrants too (p 0.3), so that the coded flags take
+    both values; the wire's native kinds and transform-8x8 bits come
+    back then as well: (syntax, native, t8)."""
+    native, t8, kind = wire_kinds(rng, F, n)
     qp = rng.integers(0, 52, (F, n))
     qp.flat[:2] = [0, 51]
     tabs = decoder_tables("cpu")
@@ -65,7 +80,36 @@ def stage_a_inputs(rng, F, n, amp=32):
     for k, width in (("luma_lv", 256), ("luma_dc", 16), ("chroma_dc", 8),
                      ("chroma_ac", 128)):
         s[k] = rng.integers(-amp, amp + 1, (F, n, width)).astype(np.int16)
-    return s
+    if not sparse:
+        return s
+    lv = s["luma_lv"].reshape(F, n, 16, 16)
+    lv[rng.random((F, n, 16)) < 0.6] = 0
+    lv.reshape(F, n, 4, 64)[rng.random((F, n, 4)) < 0.3] = 0
+    return s, native, t8
+
+
+def coded_blocks_jax(native, t8, luma_lv, mb_w, mb_h):
+    """The I/P/B step's coded flags per 4x4 block of one picture: the
+    jnp expression of ``dryv_tpu/device_ipb_packed.py`` (:265-276) on
+    its native kinds [n], kind-byte transform-8x8 bits [n] and luma
+    levels [n, 256]; bool [4 mb_h, 4 mb_w]."""
+    import jax.numpy as jnp
+    from dryv_tpu.avc.neighbors import ZSCAN_4X4_POS
+
+    n = mb_w * mb_h
+    kind, t8, lanes = (jnp.asarray(a) for a in (native, t8, luma_lv))
+    nzz = lanes[:, :256].reshape(n, 16, 16).any(-1)
+    nz8 = lanes[:, :256].reshape(n, 4, 64).any(-1)
+    blk = jnp.arange(16)
+    nz_z = jnp.where((t8 == 1)[:, None] | (kind == KIND_I8)[:, None],
+                     nz8[:, blk >> 2], nzz)
+    perm = np.zeros(16, np.int32)
+    for z in range(16):
+        ox, oy = ZSCAN_4X4_POS[z]
+        perm[oy * 4 + ox] = z
+    return np.asarray(nz_z[:, jnp.asarray(perm)]
+                      .reshape(mb_h, mb_w, 4, 4).transpose(0, 2, 1, 3)
+                      .reshape(4 * mb_h, 4 * mb_w))
 
 
 @pytest.mark.parametrize("custom", [False, True])
@@ -93,6 +137,55 @@ def test_stage_a_plain_matches_jax(geom, F, custom):
     got = stage_a({k: torch.from_numpy(v) for k, v in s.items()},
                   decoder_tables("cpu", *lists))
     assert all(torch.equal(a, b) for a, b in zip(got, (yres, cres)))
+
+
+@pytest.mark.parametrize("geom,F", GEOMS)
+def test_coded_blocks_match_jax(geom, F):
+    """B5's nz4 (the wrapper on the CPU: ``coded_blocks_plain``) equals
+    the I/P/B step's jnp expression on the wire's native kinds and
+    transform-8x8 bits, and the residual rows stay those without it."""
+    mb_w, mb_h = geom
+    n = mb_w * mb_h
+    rng = np.random.default_rng(31 * n + F)
+    s, native, t8 = stage_a_inputs(rng, F, n, sparse=True)
+    st = {k: torch.from_numpy(v) for k, v in s.items()}
+    tabs = decoder_tables("cpu")
+    yres, cres, nz4 = stage_a(st, tabs, mb_w)
+    assert nz4.dtype == torch.uint8 and nz4.shape == (F, 4 * mb_h, 4 * mb_w)
+    for f in range(F):
+        np.testing.assert_array_equal(
+            nz4[f].numpy(), coded_blocks_jax(native[f], t8[f],
+                                             s["luma_lv"][f], mb_w, mb_h))
+    if n > 1:
+        assert set(np.unique(nz4.numpy())) == {0, 1}
+    assert all(torch.equal(a, b)
+               for a, b in zip((yres, cres), stage_a_plain(st, tabs)))
+    with pytest.raises(ValueError):     # n MBs do not make rows of n + 1
+        stage_a(st, tabs, n + 1)
+
+
+def test_stage_a_level_layouts():
+    """B5 takes its levels as the column slices of dense rows (padded
+    past n MBs, and a band of them) or as segments with contiguous rows
+    (and a slice of pictures); a segment with rows of another stride,
+    or dense slices out of order, raise before any launch."""
+    from dryv_tpu_torch.kernels.transform import LEVELS, _check_level_layout
+
+    dense = torch.zeros((2, 12, 408), dtype=torch.int16)
+    cols = {k: dense[:, :10, c:c + w] for (k, w), c in
+            zip(LEVELS, (0, 256, 272, 280))}
+    apart = {k: torch.zeros((3, 10, w), dtype=torch.int16)
+             for k, w in LEVELS}
+    for levels in ([cols[k] for k, _ in LEVELS],
+                   [cols[k][:, 2:7] for k, _ in LEVELS],
+                   [apart[k] for k, _ in LEVELS],
+                   [apart[k][1:] for k, _ in LEVELS]):
+        _check_level_layout(levels, levels[0].device)
+    wide = torch.zeros((2, 10, 512), dtype=torch.int16)[..., :256]
+    for levels in ([wide] + [apart[k][:2] for k, _ in LEVELS[1:]],
+                   [cols[k] for k, _ in reversed(LEVELS)]):
+        with pytest.raises(ValueError):
+            _check_level_layout(levels, levels[0].device)
 
 
 def test_clamped_rows_give_the_same_inter_tiles():
