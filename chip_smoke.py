@@ -140,6 +140,7 @@ import collections
 import contextlib
 import ctypes
 import functools
+import gc
 import glob
 import io
 import json
@@ -183,6 +184,35 @@ J_PHASES = (6, 9, 10, 11, 14)
 J_SUM_OPS = 9
 CHROMA_SAMPLE_OPS = 9    # 4 products, 3 sums, the rounding
 CHROMA_GROUP_OPS = 8     # the four bilinear weights, once a group
+# B2's integer operations on the data (csrc/intra_wavefront.cu), counted
+# from its code: arithmetic on samples and their sums (add, subtract,
+# multiply, shift, compare, select, min/max), not addressing; what the
+# kernel's lanes each compute for a whole block is counted once a block
+B2_RES = 3            # a sample's residual add and clip to [0, 255]
+B2_TAP = 7            # a directional sample: three taps and the shift
+B2_PLANE = 10         # a plane-mode sample: 2 differences, 2 products, 3
+                      # sums, the shift, the clip
+B2_I16_PRE = 87       # an I16 or PCM MB (the kernel takes these for both):
+                      # above and left sums 15 + 15, the plane's 16
+                      # weighted differences 32 and their sums 7 + 7, b
+                      # and c 6, a 2, the DC 3
+B2_I8_FILTER = 125    # an I8 block's 25 reference samples, 5 each
+B2_I8_DC = 17         # an I8 DC block's two sums 7 + 7 and the DC 3
+B2_I4_DC = 9          # a 4x4 DC block's two sums 3 + 3 and the DC 3
+B2_C_DC = 9           # a chroma 4x4 quadrant's DC, the same
+B2_C_PLANE_PRE = 32   # a chroma plane's plane-mode sums: 8 weighted
+                      # differences 24, b and c 6, a 2
+# B3's per line across an edge whose bS is not 0 (csrc/deblock.cu): the
+# gate (3 absolute differences, 3 compares, 2 ands); past it, luma ap/aq
+# 6, at bS 4 the strong test 3 and its 2 ands, each side 22 strong or 5
+# weak; at bS 1-3 tc 2, delta 9, the average 3, p0 and q0 3 each, p1 and
+# q1 8 each where ap / aq; chroma at bS 4 5 a side, at bS 1-3 tc 1,
+# delta 9, p0 and q0 3 each
+B3_GATE = 11
+B3_LUMA_AP = 6
+B3_STRONG, B3_STRONG_SIDE, B3_WEAK_SIDE = 5, 22, 5
+B3_NORMAL, B3_NORMAL_P1 = 20, 8
+B3_CHROMA_BS4, B3_CHROMA_NORMAL = 10, 16
 
 
 def fail(msg):
@@ -336,6 +366,96 @@ def int32_ops_per_s():
                          timeout=60).stdout.split()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return INT32_OPS_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
+
+
+def larger_bound(bytes_ms, ops):
+    """(bound ms, "bytes" or "operations", both terms as text) of a call
+    that moves bytes_ms's bytes and does `ops` int32 operations."""
+    ops_ms = ops / int32_ops_per_s() * 1e3
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms > bytes_ms else "bytes",
+            f"bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms ({ops} "
+            f"int32)")
+
+
+def b2_ops(meta):
+    """B2's integer operations on one call's MBs (meta [F, n, 32] uint8,
+    ``kernels.wavefront.recon_inputs``'s rows: kind, I16 mode, chroma
+    mode, the 16 I4 and 4 I8 modes), by the ``B2_*`` counts; the banded
+    form's halo adds none."""
+    m = meta.reshape(-1, meta.shape[-1]).long()
+    kind, cm = m[:, 0], m[:, 2]
+    i8, i16, pcm = kind == 1, kind == 2, kind == 3
+    i4 = ~(i8 | i16 | pcm)
+    luma = (i16 | pcm) * B2_I16_PRE + i16 * 256 * (
+        B2_RES + (m[:, 1] == 3) * B2_PLANE)
+    luma = luma + i8 * (4 * (B2_I8_FILTER + 64 * B2_RES) + torch.where(
+        m[:, 23:27] == 2, B2_I8_DC, 64 * B2_TAP).sum(1))
+    luma = luma + i4 * (256 * B2_RES + torch.where(
+        m[:, 7:23] == 2, B2_I4_DC, 16 * B2_TAP).sum(1))
+    chroma = ~pcm * (128 * B2_RES + (cm == 0) * 8 * B2_C_DC + (cm == 3) * (
+        2 * B2_C_PLANE_PRE + 128 * B2_PLANE))
+    return int((luma + chroma).sum())
+
+
+def b3_edge_ops(lines, prm, bs_at, a_at, b_at, luma):
+    """B3's operations (``B3_*``) on one direction's edges of one plane:
+    `lines` [F, L, X] uint8, each row a line crossing the edges at x =
+    16 * mb + 4 * e (luma, 4 edges) or 8 * mb + 4 * e (chroma, 2), edge 0
+    only past the first MB; prm [F, mb_l, mb_x, 192] the MBs' parameter
+    rows in the same order; the byte offsets of edge 0's bS (luma: one a
+    4 lines, chroma: one a line), alpha and beta (luma: the next edges'
+    follow, chroma: every other byte).  The filters' decisions are read
+    on the planes as given, before any filtering."""
+    F, L, X = lines.shape
+    dev = lines.device
+    mb, E, G, gap, t = (16, 4, 4, 1, 4) if luma else (8, 2, 8, 2, 2)
+    mb_x = X // mb
+    e = torch.arange(E, device=dev)
+    q0 = torch.arange(mb_x, device=dev)[:, None] * mb + 4 * e   # [mb_x, E]
+    idx = (q0[..., None] + torch.arange(-t, t, device=dev)).clamp(0, X - 1)
+    v = lines[:, :, idx].int()                       # [F, L, mb_x, E, 2t]
+    my = torch.arange(L, device=dev) // mb
+    sub = torch.arange(L, device=dev) % mb // (mb // G)
+    bsm = prm[..., bs_at:bs_at + E * G].reshape(F, -1, mb_x, E, G)
+    bs = bsm.permute(0, 1, 4, 2, 3)[:, my, sub].int()   # [F, L, mb_x, E]
+    alpha = prm[..., a_at:a_at + gap * E:gap][:, my].int()
+    beta = prm[..., b_at:b_at + gap * E:gap][:, my].int()
+    on = (bs > 0) & ((torch.arange(mb_x, device=dev)[:, None] > 0) | (e > 0))
+    p0, p1, q0_, q1 = v[..., t - 1], v[..., t - 2], v[..., t], v[..., t + 1]
+    passed = on & ((p0 - q0_).abs() < alpha) & ((p1 - p0).abs() < beta) \
+        & ((q1 - q0_).abs() < beta)
+    if not luma:
+        body = torch.where(bs == 4, B3_CHROMA_BS4, B3_CHROMA_NORMAL)
+    else:
+        ap = (v[..., t - 3] - p0).abs() < beta
+        aq = (v[..., t + 2] - q0_).abs() < beta
+        strong = (p0 - q0_).abs() < (alpha >> 2) + 2
+
+        def side(a):
+            return torch.where(a & strong, B3_STRONG_SIDE, B3_WEAK_SIDE)
+
+        body = B3_LUMA_AP + torch.where(
+            bs == 4, B3_STRONG + side(ap) + side(aq),
+            B3_NORMAL + B3_NORMAL_P1 * (ap.int() + aq.int()))
+    return int((on * B3_GATE + passed * body).sum())
+
+
+def b3_ops(prm, y, cb, cr, mb_w, mb_h):
+    """B3's integer operations on one call (prm [F, n, 192] as
+    ``kernels.deblock.pack_params`` lays it out): ``b3_edge_ops`` over
+    luma and both chroma planes, vertical edges on the rows and
+    horizontal ones on the columns."""
+    F = y.shape[0]
+    pv = prm.view(F, mb_h, mb_w, -1)
+    ph = pv.transpose(1, 2)
+    ops = b3_edge_ops(y, pv, 0, 32, 36, True)
+    ops += b3_edge_ops(y.transpose(1, 2), ph, 40, 72, 76, True)
+    for k, c in enumerate((cb, cr)):
+        ops += b3_edge_ops(c, pv, 80, 128 + k, 132 + k, False)
+        ops += b3_edge_ops(c.transpose(1, 2), ph, 136, 184 + k, 188 + k,
+                           False)
+    return ops
 
 
 def popcount16(m):
@@ -695,46 +815,192 @@ def device_kernels_in_profile(segments, names):
     return out
 
 
+# one call inside spans_around: CUDA events around it, the host ms it
+# took to return, a tag of its arguments and the stall counts it moved
+Call = collections.namedtuple("Call", "e0 e1 host tag counts")
+# the caching allocator's counters that move when a call takes card memory
+# afresh (cudaMalloc: num_device_alloc, segment.all.allocated), gives it
+# back (num_device_free), frees its cache and retries, or synchronises
+# every stream; the pinned host allocator's cudaHostAlloc / cudaFreeHost;
+# each where the installed torch has it
+ALLOC_KEYS = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+              "num_sync_all_streams", "segment.all.allocated")
+PINNED_KEYS = ("num_host_alloc", "num_host_free")
+
+
+class Calls(list):
+    """spans_around's ``Call``s; ``window`` holds the stall counts that
+    the whole window moved."""
+    window = None
+
+
+class GcClock:
+    """Python's garbage-collector passes while it sits in
+    ``gc.callbacks``: their count, the full (generation 2) ones among them
+    and the ms they took."""
+
+    def __init__(self):
+        self.n, self.n2, self.ms, self._t0 = 0, 0, 0.0, None
+
+    def now(self):
+        return self.n, self.n2, self.ms
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.n += 1
+            self.n2 += info["generation"] == 2
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+
+def stall_counts(caught):
+    """The counters a host stall may move, now: ``ALLOC_KEYS`` of
+    torch.cuda.memory_stats(), ``PINNED_KEYS`` of
+    torch.cuda.host_memory_stats() ("pinned ..."), and the synchronising
+    calls torch.cuda's sync debug mode warned of in `caught` ("sync")."""
+    m = torch.cuda.memory_stats()
+    out = {k: m[k] for k in ALLOC_KEYS if k in m}
+    if hasattr(torch.cuda, "host_memory_stats"):
+        h = torch.cuda.host_memory_stats()
+        out.update({f"pinned {k}": h[k] for k in PINNED_KEYS if k in h})
+    out["sync"] = sum("synchroniz" in str(w.message) for w in caught)
+    return out
+
+
+def count_delta(a, b):
+    return {k: b[k] - a[k] for k in b if k in a}
+
+
+def count_sum(dicts):
+    out = collections.Counter()
+    for d in dicts:
+        out.update(d)
+    return {k: round(v, 3) if isinstance(v, float) else v
+            for k, v in out.items()}
+
+
 @contextlib.contextmanager
 def spans_around(owner, attr, tag=lambda *a: None):
     """Patches ``owner.attr`` so that every call records CUDA events
-    around it and the host time it takes to return (its enqueue); yields
-    the list of (start event, end event, host ms, tag(*args)).  Nothing
-    synchronises inside."""
-    spans = []
+    around it, the host time it takes to return (its enqueue) and the
+    stall counts (``stall_counts``, read outside the timed part, and the
+    garbage collector's passes, full passes and ms inside it: "gc",
+    "gc2", "gc_ms") it moved;
+    yields the ``Calls``, whose ``window`` the counts of the whole block
+    get.  Nothing synchronises inside; torch.cuda's sync debug mode warns
+    there of each call that does."""
+    spans = Calls()
     orig = getattr(owner, attr)
+    clock = GcClock()
+    caught = []
 
     def timed(*a, **k):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        c0 = stall_counts(caught)
+        g0 = clock.now()
         e0.record()
         t0 = time.perf_counter()
         out = orig(*a, **k)
         host = (time.perf_counter() - t0) * 1e3
+        g1 = clock.now()
         e1.record()
-        spans.append((e0, e1, host, tag(*a)))
+        c = count_delta(c0, stall_counts(caught))
+        c.update(zip(("gc", "gc2", "gc_ms"), (b - a for a, b in zip(g0, g1))))
+        spans.append(Call(e0, e1, host, tag(*a), c))
+        return out
+
+    setattr(owner, attr, timed)
+    gc.callbacks.append(clock)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            w0 = stall_counts(caught)
+            yield spans
+            spans.window = count_delta(w0, stall_counts(caught))
+            spans.window.update(zip(("gc", "gc2", "gc_ms"), clock.now()))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        gc.callbacks.remove(clock)
+        setattr(owner, attr, orig)
+
+
+@contextlib.contextmanager
+def host_ms_of(owner, attr):
+    """Patches ``owner.attr`` to append the host ms each call takes to
+    the list it yields."""
+    ms = []
+    orig = getattr(owner, attr)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
     setattr(owner, attr, timed)
     try:
-        yield spans
+        yield ms
     finally:
         setattr(owner, attr, orig)
 
 
+def pooled(calls):
+    """The ``Calls`` of several windows as one: every call, the windows'
+    counts summed."""
+    out = Calls(c for cs in calls for c in cs)
+    out.window = count_sum(cs.window for cs in calls)
+    return out
+
+
 def span_summary(spans):
-    """(device ms list, mean device ms, mean host ms) of spans_around's
-    spans, after the work they bracket has finished."""
+    """(device ms of each span, median device ms, median host ms, max host
+    ms) of spans_around's spans, after the work they bracket has
+    finished."""
     torch.cuda.synchronize()
-    dev = [a.elapsed_time(b) for a, b, _, _ in spans]
-    return dev, statistics.mean(dev), statistics.mean(h for *_, h, _ in
-                                                      spans)
+    dev = [c.e0.elapsed_time(c.e1) for c in spans]
+    host = [c.host for c in spans]
+    return dev, statistics.median(dev), statistics.median(host), max(host)
+
+
+def stall_line(label, spans, card, **extra):
+    """One JSON line for a graphed path's calls: host ms to return, median
+    and max over every call, beside the device span's median and max; the
+    calls whose host ms exceeds the device span's median (they took longer
+    to enqueue than the card to run) with their host ms; the stall counts
+    in those calls, in the others and over the whole window; and `extra`.
+    Returns the line's dict."""
+    dev, d_med, h_med, h_max = span_summary(spans)
+    stalled = [c for c in spans if c.host > d_med]
+    clean = [c for c in spans if c.host <= d_med]
+    line = {"path": label, "calls": len(spans),
+            "host_ms_median": round(h_med, 4),
+            "host_ms_max": round(h_max, 4),
+            "device_ms_median": round(d_med, 4),
+            "device_ms_max": round(max(dev), 4),
+            "stalled": len(stalled),
+            "stalled_host_ms": [round(c.host, 3) for c in stalled],
+            "counts_stalled": count_sum(c.counts for c in stalled),
+            "counts_other": count_sum(c.counts for c in clean),
+            "counts_window": count_sum([spans.window]), **extra}
+    print(f"per-call host ms of a graphed path: {json.dumps(line)}  "
+          f"[{card}]")
+    return line
+
+
+# CUDA runtime calls host_calls_in_profile counts, besides every
+# *Synchronize call
+HOST_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMalloc",
+              "cudaFree", "cudaHostAlloc", "cudaFreeHost")
 
 
 def host_calls_in_profile(fn):
-    """(cudaLaunchKernel, cudaGraphLaunch) calls in a CPU-activity
-    torch.profiler trace of fn() (the process's first profiler run took
-    the device events)."""
+    """{CUDA runtime call: count} in a CPU-activity torch.profiler trace
+    of fn() (the process's first profiler run took the device events):
+    ``HOST_CALLS`` (0 where none) and every call named *Synchronize."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -742,7 +1008,10 @@ def host_calls_in_profile(fn):
         fn()
         torch.cuda.synchronize()
     calls = {e.key: e.count for e in prof.key_averages()}
-    return calls.get("cudaLaunchKernel", 0), calls.get("cudaGraphLaunch", 0)
+    out = {k: calls.get(k, 0) for k in HOST_CALLS}
+    out.update({k: v for k, v in calls.items()
+                if k.startswith("cuda") and k.endswith("Synchronize")})
+    return out
 
 
 def sync_calls(fn):
@@ -766,24 +1035,25 @@ def sync_all():
 
 
 def span_host_ms(fn, reps=3):
-    """Mean (device span by CUDA events on the current card, host time to
-    return) ms of fn(), after one warm call, every card idle at each
-    start: the span runs from the current card's start to its end, after
-    which a sharded call's work has met there."""
+    """(median device span by CUDA events on the current card, median and
+    max host time to return) ms of fn() over `reps` calls, after one warm
+    call, every card idle at each start: the span runs from the current
+    card's start to its end, after which a sharded call's work has met
+    there."""
     fn()
     sync_all()
-    tot = host = 0.0
+    dev, host = [], []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         t0 = time.perf_counter()
         fn()
-        host += time.perf_counter() - t0
+        host.append((time.perf_counter() - t0) * 1e3)
         b.record()
         sync_all()
-        tot += a.elapsed_time(b)
-    return tot / reps, host * 1e3 / reps
+        dev.append(a.elapsed_time(b))
+    return statistics.median(dev), statistics.median(host), max(host)
 
 
 @contextlib.contextmanager
@@ -1112,9 +1382,10 @@ def cards_numbers(card, cards, paths):
         cols = ("step graphed", "step eager", "whole call graphed",
                 "whole call eager")
         print(f"{name}, {' / '.join(routes)} in turns, device span (host "
-              f"ms to return), mean of 3 (whole calls: 2): " + "; ".join(
+              f"ms to return, median / max), median of 3 (whole calls: 2): "
+              + "; ".join(
                   f"{c} " + ", ".join(f"{r} " + " / ".join(
-                      f"{v[j][0]:.3f} ({v[j][1]:.3f})" for v in t[r])
+                      "{:.3f} ({:.3f} / {:.3f})".format(*v[j]) for v in t[r])
                       for r in routes) for j, c in enumerate(cols))
               + "; graphs replayed a call: " + ", ".join(
                   f"{r} {t[r][0][4]}" for r in routes) + f"  [{card}]")
@@ -1147,8 +1418,8 @@ def multi_card_phase(card, cards, paths, want, gop_stream, nthreads):
 
     def host_side():
         for name, (call, _) in paths.items():
-            print(f"{name}: cudaLaunchKernel, cudaGraphLaunch a graphed "
-                  f"whole call (CPU-activity torch.profiler): 1 card "
+            print(f"{name}: CUDA runtime calls of a graphed whole call "
+                  f"(CPU-activity torch.profiler): 1 card "
                   f"{host_calls_in_profile(lambda: call(ONE_CARD, True, 0))}"
                   f", {n} cards "
                   f"{host_calls_in_profile(lambda: call(cards, True, 0))}")
@@ -1555,14 +1826,18 @@ def main():
                                          halo=halo), 10)
         plain = cuda_ms(lambda: intra_recon_plain(*inputs, tables, MB_W,
                                                   rows, halo), 2)
-        bound = bound_ms(*inputs, *got, *(halo or ()))
+        bound, by, terms = larger_bound(
+            bound_ms(*inputs, *got, *(halo or ())), b2_ops(inputs[0]))
+        print(f"bound terms of {key} ({MB_W}x{rows} MBs x {nf}): {terms}; "
+              f"its dependency chain {MB_W + 2 * (rows - 1)} MB steps "
+              f"(mb_w + 2 (mb_h - 1))  [{card}]")
         if key == "intra_wavefront_f1":
             report("intra_wavefront at F = 1 (the per-picture path's "
                    "shape)", err, ms, plain, bound)
         else:
             record(key, "dryv_tpu_torch/csrc/intra_wavefront.cu",
                    "dryv_tpu/kernels/pallas_wavefront.py:140", err, ms,
-                   plain, bound)
+                   plain, bound, by)
 
     # where B2's time goes: the same F = 1 picture with every MB of one
     # kind (PCM predicts nothing, so its time is the schedule's: flag
@@ -1635,11 +1910,17 @@ def main():
             ms = fresh_ms(deblock, prm, planes)
             if not slices:
                 b3_cases[key] = (prm, planes)
+                bound, by, terms = larger_bound(
+                    bound_ms(prm, *planes, *dk),
+                    b3_ops(prm, *planes, MB_W, MB_H))
+                print(f"bound terms of {key} ({MB_W}x{MB_H} MBs x {nf}): "
+                      f"{terms}; its dependency chain "
+                      f"{MB_W + 2 * (MB_H - 1)} MB steps  [{card}]")
                 record(key, "dryv_tpu_torch/csrc/deblock.cu",
                        "dryv_tpu/kernels/pallas_deblock.py:93", err, ms,
                        cuda_ms(lambda: deblock_plain(prm, *planes, MB_W,
                                                      MB_H), 2),
-                       bound_ms(prm, *planes, *dk))
+                       bound, by)
             else:
                 print(f"kernel {key} (F = {nf}) with random slices and "
                       f"idc 0/1/2: max_abs_err {err}, changed "
@@ -1928,44 +2209,58 @@ def main():
               f"run): {json.dumps(stage_ms[graph])}; stage sum / wall: "
               f"median {statistics.median(ratios[graph]):.3f}  [{card}]")
     tm = StageTimers()
-    t0 = time.perf_counter()
-    host = decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
-                                       device=dev, timers=tm)
-    wall = time.perf_counter() - t0
+    with spans_around(graphs.Step, "__call__") as spans:
+        t0 = time.perf_counter()
+        host = decode_annexb_gop_pipelined(big, gop=F, n_threads=nthreads,
+                                           device=dev, timers=tm)
+        wall = time.perf_counter() - t0
+    check_frames(f"batched bench1080p_gop16 x{B}, host frames (graphed)",
+                 host, refs[0] * B, "native C++")
     print(f"e2e host-frame output (graphed): {len(host) / wall:.2f} fps, "
-          f"stage sum / wall {sum(tm.t.values()) / wall:.3f}  [{card}]")
+          f"stage sum / wall {sum(tm.t.values()) / wall:.3f}; stage "
+          f"ms/frame {json.dumps({k: round(v / len(host) * 1e3, 3) for k, v in tm.t.items()})}  [{card}]")
+    del host
+    stall_line(f"batched bench1080p_gop16 x{B}, F = {F}, host frames",
+               spans, card)
 
     def batch_spans(stream, graph):
         """Decode `stream` through the batched pipeline (stacked device
         output) with CUDA events around each batch's device call
         (PackedGopDecoder.forward eager, the step's replay graphed);
-        returns (output, device ms per batch, host ms per batch, wall
-        s)."""
+        returns (output, its ``Calls``, wall s); graphed, the ``Calls``
+        hold in ``replay_ms`` the host ms of each graph's replay inside
+        them."""
         owner, attr = ((graphs.Step, "__call__") if graph
                        else (PackedGopDecoder, "forward"))
-        with spans_around(owner, attr) as spans:
+        with spans_around(owner, attr) as spans, \
+                host_ms_of(torch.cuda.CUDAGraph, "replay") as replay_ms:
             t0 = time.perf_counter()
             out = batched(graph, stream=stream)
             wall = time.perf_counter() - t0
-        ms, _, host = span_summary(spans)
-        return out, ms, host, wall
+        spans.replay_ms = [round(x, 3) for x in replay_ms]
+        return out, spans, wall
 
     for graph in (False, True):
-        _, spans, host, wall = batch_spans(big, graph)
-        busy = sum(spans)
+        _, spans, wall = batch_spans(big, graph)
+        ms, d_med, h_med, h_max = span_summary(spans)
         print(f"device span of the batch stage {('eager', 'graphed')[graph]}"
-              f": {busy / len(spans):.3f} ms per batch of {F} (host "
-              f"{host:.3f} ms to enqueue it), {busy / 1e3 / wall:.4f} of "
-              f"the {wall:.3f} s wall  [{card}]")
+              f": median {d_med:.3f} ms per batch of {F} (host median "
+              f"{h_med:.3f}, max {h_max:.3f} ms to enqueue it), "
+              f"{sum(ms) / 1e3 / wall:.4f} of the {wall:.3f} s wall  "
+              f"[{card}]")
+        if graph:
+            stall_line(f"batched bench1080p_gop16 x{B}, F = {F}, "
+                       f"stacked_out (batch_spans)", spans, card,
+                       replay_host_ms=spans.replay_ms)
 
     def batched_host_calls():
         n_calls = {g: host_calls_in_profile(lambda: batched(g))
                    for g in (False, True)}
         print(f"batched bench1080p_gop16 x{B} host side, per batch of {F} "
-              f"(CPU-activity torch.profiler trace): " + ", ".join(
-                  f"{('eager', 'graphed')[g]} {k / B:.1f} cudaLaunchKernel,"
-                  f" {gl / B:.1f} cudaGraphLaunch" for g, (k, gl)
-                  in n_calls.items()) + f"  [{card}]")
+              f"(CPU-activity torch.profiler trace, CUDA runtime calls): "
+              + ", ".join(f"{('eager', 'graphed')[g]} " + json.dumps(
+                  {k: v / B for k, v in c.items()})
+                  for g, c in n_calls.items()) + f"  [{card}]")
 
     # CPU-activity traces run after the census, the run's one device trace
     host_side = [batched_host_calls]
@@ -1983,7 +2278,7 @@ def main():
         golden."""
         gop_pipeline.deblock = b3
         try:
-            out, sp, _, _ = batch_spans(dblk, graph)
+            out, sp, _ = batch_spans(dblk, graph)
         finally:
             gop_pipeline.deblock = deblock
         if len(out) != 1 or out[0][3] != F:
@@ -1994,15 +2289,20 @@ def main():
                                w.expand(F, *w.shape)):
                 fail("deblocked batch differs from "
                      "bench1080p_dblk_golden.npz")
-        return sp[0]
+        return sp
 
     batched(True, stream=dblk)       # the step's capture, untimed
     dspans = {}
     for g in (False, True):
         reset_counts()
-        dspans[g] = [dblk_batch(deblock, g) for _ in range(3)]
+        calls = [dblk_batch(deblock, g) for _ in range(3)]
+        dcalls = pooled(calls)
+        dcalls.replay_ms = [x for cs in calls for x in cs.replay_ms]
+        dspans[g] = span_summary(dcalls)[0]
         if not g:
             c = counts()
+    stall_line(f"deblocked batch, bench1080p_dblk x {F}, stacked_out, 3 "
+               f"decodes", dcalls, card, replay_host_ms=dcalls.replay_ms)
     print(f"device span of one batch of {F} deblocked pictures "
           f"(bench1080p_dblk.264 x {F}, every frame bit-exact vs "
           f"bench1080p_dblk_golden.npz, eager and graphed), CUDA events, 3 "
@@ -2017,7 +2317,8 @@ def main():
                    lambda: [dblk_batch(deblock, True) for _ in range(3)], c,
                    {}))
     if old and "deblock" in old:
-        t = [statistics.mean(dblk_batch(b3, False) for _ in range(3))
+        t = [statistics.mean(span_summary(dblk_batch(b3, False))[1]
+                             for _ in range(3))
              for b3 in (old["deblock"], deblock, deblock, old["deblock"])]
         print(f"device span of the deblocked batch (eager), mean of 3 runs, "
               f"in turns: earlier B3 "
@@ -2101,21 +2402,24 @@ def main():
             decode_annexb_fast(gop_stream, n_threads=nthreads, device=dev,
                                graph=graph)
             wall = time.perf_counter() - t0
-        ms, mean_ms, host = span_summary(spans)
+        ms, d_med, h_med, h_max = span_summary(spans)
         print(f"per-picture bench1080p_gop16 {('eager', 'graphed')[graph]}:"
-              f" device span {mean_ms:.3f} ms per picture (host "
-              f"{host:.3f} ms to enqueue it), {sum(ms) / 1e3 / wall:.4f} of "
-              f"the {wall:.3f} s wall  [{card}]")
+              f" device span median {d_med:.3f} ms per picture (host median "
+              f"{h_med:.3f}, max {h_max:.3f} ms to enqueue it), "
+              f"{sum(ms) / 1e3 / wall:.4f} of the {wall:.3f} s wall  "
+              f"[{card}]")
+        if graph:
+            stall_line("per-picture bench1080p_gop16", spans, card)
 
     def per_picture_host_calls():
         for graph in (False, True):
-            k, gl = host_calls_in_profile(lambda: decode_annexb_fast(
+            c = host_calls_in_profile(lambda: decode_annexb_fast(
                 gop_stream, n_threads=nthreads, device=dev, graph=graph))
             print(f"per-picture bench1080p_gop16 "
-                  f"{('eager', 'graphed')[graph]}: per picture "
-                  f"{k / len(refs[0]):.1f} cudaLaunchKernel, "
-                  f"{gl / len(refs[0]):.1f} cudaGraphLaunch (CPU-activity "
-                  f"torch.profiler trace)  [{card}]")
+                  f"{('eager', 'graphed')[graph]}: CUDA runtime calls per "
+                  f"picture " + json.dumps(
+                      {k: v / len(refs[0]) for k, v in c.items()})
+                  + f" (CPU-activity torch.profiler trace)  [{card}]")
 
     host_side.append(per_picture_host_calls)
     print(f"captured steps of the per-picture path: "
@@ -2185,6 +2489,10 @@ def main():
           f"{replay_ms:.4f} ms, whole call (loads, replay, clones) "
           f"{call_ms:.4f} ms on the card, {host_ms:.4f} ms of host "
           f"a call back to back  [{card}]")
+    with spans_around(graphs.Step, "__call__") as spans:
+        for _ in range(50):
+            fn(*args)
+    stall_line("entry() fn(*args), 50 calls back to back", spans, card)
 
     # ---- phase 9: the sharded paths on one card, eager and graphed -----
     # graph=False enqueues each path op by op on its mesh slots' streams;
@@ -2295,9 +2603,10 @@ def main():
         t = {}
         for k in order:
             t.setdefault(k, []).append(span_host_ms(fns[k]))
-        print(f"{label}, device span (host ms to return), CUDA events, "
-              f"mean of 3, in turns: " + ", ".join(
-                  f"{k} " + " / ".join(f"{d:.3f} ({h:.3f})" for d, h in v)
+        print(f"{label}, device span (host ms to return, median / max), "
+              f"CUDA events, median of 3, in turns: " + ", ".join(
+                  f"{k} " + " / ".join("{:.3f} ({:.3f} / {:.3f})".format(*x)
+                                       for x in v)
                   for k, v in t.items()) + f" ms  [{card}]")
         return t
 
@@ -2337,9 +2646,10 @@ def main():
         spans.setdefault(graph, []).append(span_summary(sp)[1:])
     print("16 pictures of bench1080p_gop16, decode_gop_sharded over "
           "['cuda:0'] * 2, device part (syntax copies in, stage A + B2 "
-          "on both slots), device span (host ms to return), in turns: "
+          "on both slots), device span median (host ms to return, median "
+          "/ max), in turns: "
           + ", ".join(f"{('eager', 'graphed')[g]} " + " / ".join(
-              f"{d:.3f} ({h:.3f})" for d, h in v)
+              "{:.3f} ({:.3f} / {:.3f})".format(*x) for x in v)
               for g, v in spans.items()) + f" ms  [{card}]")
     print(f"captured steps of the sharded paths: "
           f"{json.dumps(parallel.STEPS.stats())}; card memory reserved "
@@ -2390,8 +2700,8 @@ def main():
                                  graph=graph), ref, against)
         c = counts()
         seen = {}
-        for *_, t in spans:
-            seen[t] = seen.get(t, 0) + 1
+        for call in spans:
+            seen[call.tag] = seen.get(call.tag, 0) + 1
         return c, seen
 
     # B4's arguments on real pictures are taken on an eager decode: a
@@ -2634,26 +2944,30 @@ def main():
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        ms, mean_ms, host = span_summary(spans)
+        ms, d_med, h_med, h_max = span_summary(spans)
         n_sync = sync_calls(run)
         print(f"packed I/P/B bench1080p_ipb.264 {('eager', 'graphed')[graph]}"
               f" (device output): device span per picture, CUDA events: "
-              + ", ".join(f"{t[0]} {v:.3f}" for v, (*_, t) in zip(ms, spans))
-              + f" ms; mean {mean_ms:.3f} ms (host {host:.3f} ms to enqueue"
+              + ", ".join(f"{c.tag[0]} {v:.3f}" for v, c in zip(ms, spans))
+              + f" ms; mean {statistics.mean(ms):.3f}, median {d_med:.3f} "
+              f"ms (host median {h_med:.3f}, max {h_max:.3f} ms to enqueue"
               f" it), {sum(ms) / 1e3 / wall:.4f} of the {wall:.3f} s wall; "
               f"{n_sync} synchronizing calls in a decode (torch.cuda sync "
               f"debug mode)  [{card}]")
+        if graph:
+            stall_line("packed I/P/B bench1080p_ipb.264, device output",
+                       spans, card)
 
     def ipb_host_calls():
         for graph in (False, True):
-            k, gl = host_calls_in_profile(lambda: decode_annexb_device_packed(
+            c = host_calls_in_profile(lambda: decode_annexb_device_packed(
                 ipb, n_threads=nthreads, device=dev, device_out=True,
                 graph=graph))
             print(f"packed I/P/B bench1080p_ipb.264 "
-                  f"{('eager', 'graphed')[graph]} (device output): per "
-                  f"picture {k / len(ipb_ref):.1f} cudaLaunchKernel, "
-                  f"{gl / len(ipb_ref):.1f} cudaGraphLaunch (CPU-activity "
-                  f"torch.profiler trace)  [{card}]")
+                  f"{('eager', 'graphed')[graph]} (device output): CUDA "
+                  f"runtime calls per picture " + json.dumps(
+                      {k: v / len(ipb_ref) for k, v in c.items()})
+                  + f" (CPU-activity torch.profiler trace)  [{card}]")
 
     host_side.append(ipb_host_calls)
     print(f"captured steps of the packed I/P/B path: "
@@ -2739,9 +3053,10 @@ def main():
             fn = step if graph else lambda: p_fn(*p_in)
             spans.setdefault(graph, []).append(span_host_ms(fn))
     print("a 1080p P picture, banded P recon device work (inputs on the "
-          "card), device span (host ms to return), mean of 3, in turns: "
+          "card), device span (host ms to return, median / max), median of "
+          "3, in turns: "
           + ", ".join(f"{('eager', 'graphed')[g]} " + " / ".join(
-              f"{d:.3f} ({h:.3f})" for d, h in v)
+              "{:.3f} ({:.3f} / {:.3f})".format(*x) for x in v)
               for g, v in spans.items()) + f" ms  [{card}]")
     print(f"captured steps of the sharded paths and banded P recon: "
           f"{json.dumps(parallel.STEPS.stats())}; card memory reserved "

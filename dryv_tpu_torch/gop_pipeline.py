@@ -429,7 +429,9 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     Returns a list of DecodedFrame (host planes, cropped); with
     device_out=True, a list of per-frame (y, cb, cr) device tensors
     (uncropped); with stacked_out=True, a list of per-batch (y, cb, cr,
-    n_frames) stacked [F, H, W] device tensors.  `device` is explicit:
+    n_frames) stacked [F, H, W] device tensors; these are slices of one
+    [n_batches * F, H, W] tensor per plane allocated for the decode.
+    `device` is explicit:
     "cuda" (the default) launches the kernels and raises when CUDA is
     absent; "cpu" runs their plain PyTorch versions.  Streams outside the
     batched scope (inter, non-4:2:0, lossless, FMO, CAVLC, scaling
@@ -441,7 +443,8 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     the native C++ decoder, counted in
     ``pipeline.decode_annexb_fast.host_calls``.  With `graph` (the
     default) each batch replays its key's captured step (``STEPS``),
-    and the output tensors are clones of the step's static outputs;
+    which copies its static outputs into the batch's slices (host frames
+    on CUDA: into one pinned buffer per batch; on the CPU: into clones);
     graph=False enqueues ``PackedGopDecoder`` op by op.  A batch holding
     PCM MBs (which x264 never emits, and which the JAX pipeline also
     runs apart) always goes op by op through ``decode_rows``.  Decodes
@@ -480,20 +483,46 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
 
     results = []
     pending = None
+    batches = [pics[b0:b0 + F] for b0 in range(0, len(pics), F)]
+    shapes = [(F, 16 * mb_h, 16 * mb_w)] + [(F, 8 * mb_h, 8 * mb_w)] * 2
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    if stacked_out or device_out:
+        # the decode's planes on the device: one allocation per plane,
+        # batch b's planes its slices.  A batch's call then takes no card
+        # memory: with earlier batches' planes held, the caching allocator
+        # serves a new ~50 MB block by cudaMalloc, which held the call for
+        # 2-37 ms (H100, chip_smoke's per-call counts)
+        whole = [torch.empty((len(batches) * F, *sh[1:]), dtype=torch.uint8,
+                             device=dev) for sh in shapes]
 
-    def to_host(r):
-        """For host-frame output, enqueue the D2H copy of a batch's
-        planes right behind its compute, so harvesting batch k waits for
-        batch k only.  Returns (planes, event or None)."""
+    def out_of(b):
+        """The tensors batch b's planes are copied into: slices of the
+        decode's device planes; for host frames on CUDA, views of one
+        pinned host buffer (the D2H copy enqueued right behind the
+        batch's compute, so harvesting batch k waits for batch k only);
+        None for host frames on the CPU (the step's clones)."""
+        if stacked_out or device_out:
+            return [p[b * F:(b + 1) * F] for p in whole]
+        if not cuda:
+            return None
+        buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True)
+        return [v.view(sh) for v, sh in zip(buf.split(sizes), shapes)]
+
+    def into(r, out):
+        """Planes r copied into `out` (None: r itself)."""
+        if out is None:
+            return r
+        for o, t in zip(out, r):
+            o.copy_(t, non_blocking=True)
+        return out
+
+    def copied():
+        """The event after a batch's D2H copy (host frames on CUDA)."""
         if stacked_out or device_out or not cuda:
-            return r, None
-        hs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-              for t in r]
-        for h, t in zip(hs, r):
-            h.copy_(t, non_blocking=True)
+            return None
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(dev))
-        return hs, ev
+        return ev
 
     def harvest(p):
         (r, ev), nf = p
@@ -511,9 +540,8 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                                .crop(sps))
 
     staging = BlobStaging(F, npad, n, pin=cuda)
-    batches = [pics[b0:b0 + F] for b0 in range(0, len(pics), F)]
     cur = 0
-    for batch in batches:
+    for b, batch in enumerate(batches):
         host = staging.pack(cur, batch, sps, pps, n_threads, tm)
         if host is None:
             # PCM samples ride their own host rows into the same device
@@ -524,7 +552,8 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                 i16, u8, pcm_y, pcm_c = (torch.from_numpy(a).to(dev)
                                          for a in rows)
             with tm.stage("dispatch"):
-                r = to_host(get_model().decode_rows(i16, u8, pcm_y, pcm_c))
+                r = into(get_model().decode_rows(i16, u8, pcm_y, pcm_c),
+                         out_of(b)), copied()
             if pending is not None:
                 with tm.stage("harvest"):
                     harvest(pending)
@@ -545,8 +574,9 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                     staging.ev[cur] = torch.cuda.Event()
                     staging.ev[cur].record(torch.cuda.current_stream(dev))
             with tm.stage("dispatch"):
-                r = to_host(step() if graph else
-                            get_model()(blob, W, ecap, ovcap))
+                out = out_of(b)
+                r = (step(out) if graph else
+                     into(get_model()(blob, W, ecap, ovcap), out)), copied()
         if pending is not None:
             with tm.stage("harvest"):
                 harvest(pending)

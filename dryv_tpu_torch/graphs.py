@@ -11,17 +11,19 @@ enqueues the whole step as one launch.  A ``Step`` is one static key's
 function with its static input tensors, its captured graph and its
 static outputs.  A caller holds the step (``StepCache.hold``), fills its
 static inputs (``load``), then calls it, which replays the graph and
-returns clones of the static outputs: the next replay overwrites those
-buffers, so a result that must live on (a reference picture, a frame
-handed to the caller) is never one of them.
+returns clones of the static outputs, or copies them into tensors the
+caller gives (the batched pipeline's slices of one allocation for a
+whole decode, so that a call takes no memory from the allocator): the
+next replay overwrites those buffers, so a result that must live on (a
+reference picture, a frame handed to the caller) is never one of them.
 
 On CUDA the first call of a step runs the function once eagerly on the
 static inputs on a side stream (warm-up: lazy host-to-device copies of
 index tables, the kernels' build at first use, the allocator's caches),
 then captures it.  The steps of one cache capture into one memory pool:
 their replays never overlap, because a cache lets one holder at a time
-load, replay and clone, and orders each holder's stream after the last
-holder's clones.  On the CPU the same object keeps the same static
+load, replay and copy out, and orders each holder's stream after the
+last holder's copies.  On the CPU the same object keeps the same static
 buffers, and a call runs the function eagerly on them and copies the
 results into the static outputs, so that the tests reach the key
 choice, the input copies and the output clones without a card.
@@ -157,9 +159,11 @@ class Step:
             return None
         return tuple(o for out in self.part_outputs for o in out)
 
-    def __call__(self):
+    def __call__(self, out=None):
         """Run the step on the loaded inputs; returns ``after`` of the
-        parts' outputs, or clones of the one part's outputs."""
+        parts' outputs, or copies of the one part's outputs: in `out` (a
+        tensor for each, enqueued on the current stream) when given, else
+        in clones."""
         if self.split.before is not None:
             self.split.before(self.inputs)
         if self.devices[0].type != "cuda":
@@ -176,9 +180,13 @@ class Step:
                 with torch.cuda.device(d):
                     g.replay()
         self.replays += 1
-        if self.split.after is None:
+        if self.split.after is not None:
+            return self.split.after(self.part_outputs)
+        if out is None:
             return tuple(o.clone() for o in self.outputs)
-        return self.split.after(self.part_outputs)
+        for d, o in zip(out, self.outputs):
+            d.copy_(o, non_blocking=True)
+        return tuple(out)
 
     def _capture(self):
         """Warm every part up on a side stream of its device, in order

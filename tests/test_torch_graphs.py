@@ -242,3 +242,54 @@ def test_per_picture_steps_keyed_by_the_lists_content(monkeypatch):
                decode_annexb(stream))
     (step,) = steps.steps.values()
     assert step.replays == 4 and steps.made == 1
+
+
+@pytest.mark.parametrize("mode", ["stacked_out", "device_out"])
+def test_a_decode_allocates_each_plane_once(monkeypatch, mode):
+    """A graphed decode whose planes stay on the device copies each
+    batch's planes out of the step's static outputs into one tensor per
+    plane allocated for the whole decode: 3 storages for 3 batches, where
+    a clone per batch and plane would make 9."""
+    monkeypatch.setattr(gop_pipeline, "STEPS", graphs.StepCache())
+    out = gop_pipeline.decode_annexb_gop_pipelined(
+        _intra_stream(5), gop=2, device="cpu", **{mode: True})
+    planes = [t for r in out for t in r[:3]]
+    assert len(planes) == (9 if mode == "stacked_out" else 15)
+    assert len({t.untyped_storage().data_ptr() for t in planes}) == 3
+
+
+@pytest.fixture(scope="module")
+def jax_intra():
+    """Two streams of distinct intra pictures (4x3 MBs, one key of the
+    batched step at gop=2) and the JAX pipeline's decode of each (Pallas
+    in interpret mode)."""
+    from dryv_tpu.gop_pipeline import decode_annexb_gop_pipelined as jax_dec
+
+    streams = (_intra_stream(5), _intra_stream(3, ("i16", "i4")))
+    return [(s, [(f.y, f.cb, f.cr) for f in jax_dec(s, gop=2, n_threads=1,
+                                                     interpret=True)])
+            for s in streams]
+
+
+@pytest.mark.parametrize("decodes", [1, 2])
+def test_held_planes_stay_bit_exact_after_later_calls(monkeypatch, jax_intra,
+                                                      decodes):
+    """Every batch's planes of one decode, and of two decodes in a row,
+    held while later batches and another decode replay the same step,
+    stay equal to the JAX pipeline's decode of their stream."""
+    steps = graphs.StepCache()
+    monkeypatch.setattr(gop_pipeline, "STEPS", steps)
+
+    def decode(stream):
+        return gop_pipeline.decode_annexb_gop_pipelined(
+            stream, gop=2, device="cpu", stacked_out=True)
+
+    held = [(decode(s), want) for s, want in jax_intra[:decodes]]
+    decode(jax_intra[-1][0])
+    assert steps.made == 1
+    # 3 batches of the first stream, 2 of the second
+    assert next(iter(steps.steps.values())).replays == {1: 5, 2: 7}[decodes]
+    for out, want in held:
+        got = [tuple(p[i].numpy() for p in r[:3]) for r in out
+               for i in range(r[3])]
+        _equal(got, want)
