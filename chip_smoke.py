@@ -64,8 +64,10 @@ or a stored golden:
   compensation on the whole plane, eager and graphed on a mesh of one
   card (two graphed calls on two pictures);
 - the sharded paths' per-group route, where each group of a mesh axis's
-  slots on one card is a graph of its own and the halos and aprons
-  between groups go card to card (``parallel.mesh.peer_copy``): the 4
+  slots on one card is a graph of its own and every exchange between
+  groups (halos, P recon's ghost bands, each group's planes into the
+  step's planes) runs inside their graphs, card to card
+  (``graphs.peer_copy``): the 4
   slots of one card cut in 2 and in 4 groups through the private seam
   ``parallel.mesh._slot_group`` (``slot_groups_of``), the GOP over
   {gop: 4} (F_local = 4), the band pipeline (4 bands of 17 MB rows, F =
@@ -75,10 +77,19 @@ or a stored golden:
   inputs, bit-exact to the one-group route and native C++ (P recon: B4
   on the whole plane); with several cards the same over the first four
   (``multi_card_phase``: B2, B2b and B4 against their plain versions on
-  every card, the dry run over the cards twice, each path's step alone
-  and whole call timed on one card and on the cards in turns, the census
-  of its kernels per card, the graphs a call launches, each card's graph
-  pool).  ``--multichip`` runs only the build and that phase.
+  every card, each path's two input sets alternated 8 calls back to back
+  with no synchronisation and every held result bit-exact, the dry run
+  over the cards twice, each path's step alone and whole call timed on
+  one card and on the cards in turns, the per-call host ms line of each
+  graphed step (0 cudaMalloc in its calls over the cards) and whole
+  call, each whole call by phase, the census of its kernels per card,
+  the CUDA runtime calls of one graphed step (one graph launch a card,
+  no copy outside the graphs but the loads and the results'), the host
+  ms of a graph launch on each card for small graphs with and without
+  the nodes a part holds over several cards and of each part's replay
+  in every graphed step (``replay_costs``), each card's graph pool).
+  ``--multichip`` runs only the build and that
+  phase.
 
 Before the census it runs the port's benchmark in this process
 (``dryv_tpu_torch.bench.main``, what ``python -m dryv_tpu_torch.bench``
@@ -138,6 +149,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import ctypes
 import functools
 import gc
@@ -150,6 +162,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -857,11 +870,12 @@ class GcClock:
 
 def stall_counts(caught):
     """The counters a host stall may move, now: ``ALLOC_KEYS`` of
-    torch.cuda.memory_stats(), ``PINNED_KEYS`` of
+    torch.cuda.memory_stats(), summed over the cards, ``PINNED_KEYS`` of
     torch.cuda.host_memory_stats() ("pinned ..."), and the synchronising
     calls torch.cuda's sync debug mode warned of in `caught` ("sync")."""
-    m = torch.cuda.memory_stats()
-    out = {k: m[k] for k in ALLOC_KEYS if k in m}
+    m = [torch.cuda.memory_stats(i)
+         for i in range(torch.cuda.device_count())]
+    out = {k: sum(x[k] for x in m) for k in ALLOC_KEYS if k in m[0]}
     if hasattr(torch.cuda, "host_memory_stats"):
         h = torch.cuda.host_memory_stats()
         out.update({f"pinned {k}": h[k] for k in PINNED_KEYS if k in h})
@@ -997,10 +1011,18 @@ HOST_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMalloc",
               "cudaFree", "cudaHostAlloc", "cudaFreeHost")
 
 
-def host_calls_in_profile(fn):
+# and besides those, for a sharded step's call: the copies and the event
+# records and waits the host enqueues between and after the replays
+STEP_CALLS = HOST_CALLS + ("cudaMemcpyAsync", "cudaMemcpy2DAsync",
+                           "cudaMemcpyPeerAsync", "cudaEventRecord",
+                           "cudaEventRecordWithFlags", "cudaStreamWaitEvent")
+COPY_CALLS = ("cudaMemcpyAsync", "cudaMemcpy2DAsync", "cudaMemcpyPeerAsync")
+
+
+def host_calls_in_profile(fn, names=HOST_CALLS):
     """{CUDA runtime call: count} in a CPU-activity torch.profiler trace
     of fn() (the process's first profiler run took the device events):
-    ``HOST_CALLS`` (0 where none) and every call named *Synchronize."""
+    `names` (0 where none) and every call named *Synchronize."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1008,7 +1030,7 @@ def host_calls_in_profile(fn):
         fn()
         torch.cuda.synchronize()
     calls = {e.key: e.count for e in prof.key_averages()}
-    out = {k: calls.get(k, 0) for k in HOST_CALLS}
+    out = {k: calls.get(k, 0) for k in names}
     out.update({k: v for k, v in calls.items()
                 if k.startswith("cuda") and k.endswith("Synchronize")})
     return out
@@ -1105,12 +1127,13 @@ def p_case(seed, ref, mb_w, mb_h):
 
 def sharded_paths(frames, sps, p_cases):
     """The sharded paths over a mesh of 4 slots: {name: (call,
-    step_args)}, call(devs, graph, i) -> the frames' planes as
+    step_args, frames_of)}, call(devs, graph, i) -> the frames' planes as
     numpy (y, cb, cr) per frame, cropped, for input set i (0: the
-    pictures in order, 1: reversed; P recon: picture i), and
+    pictures in order, 1: reversed; P recon: picture i),
     step_args(devs, i) -> (key, maker, host inputs) of that call's
-    step.  Run objects are made anew for each call; their steps persist
-    in ``parallel.STEPS`` by key."""
+    step, and frames_of(planes) -> the frames of the step's results
+    `planes` as call gives them.  Run objects are made anew for each
+    call; their steps persist in ``parallel.STEPS`` by key."""
     from dryv_tpu_torch import parallel
     from dryv_tpu_torch.decoder import DecodedFrame
 
@@ -1125,6 +1148,9 @@ def sharded_paths(frames, sps, p_cases):
         return [p.cpu().numpy() if torch.is_tensor(p) else p
                 for p in planes]
 
+    def stack(planes):
+        return crop(host(planes))[:len(frames)]
+
     def mesh(axes, devs):
         return parallel.make_mesh(axes, devs)
 
@@ -1132,7 +1158,8 @@ def sharded_paths(frames, sps, p_cases):
         return (lambda devs, g, i: crop(parallel.decode_gop_sharded(
                     order(i), mesh(axes, devs), graph=g)),
                 lambda devs, i: parallel.gop.step_args(order(i),
-                                                       mesh(axes, devs)))
+                                                       mesh(axes, devs)),
+                stack)
 
     def band_gop(devs, g):
         return parallel.make_banded_gop_fn(mesh({"band": 4}, devs), MB_W,
@@ -1144,7 +1171,8 @@ def sharded_paths(frames, sps, p_cases):
                                                  graph=g)
         return (lambda devs, g, i: crop([p[None] for p in host(
                     run(devs, g)(order(i)[0], device_out=True))]),
-                lambda devs, i: run(devs, True).step_args(order(i)[0]))
+                lambda devs, i: run(devs, True).step_args(order(i)[0]),
+                stack)
 
     def p_run(devs, g):
         return parallel.make_banded_p_recon_fn(mesh({"band": 4}, devs), MB_W,
@@ -1155,12 +1183,14 @@ def sharded_paths(frames, sps, p_cases):
         "make_banded_gop_fn {band: 4}": (
             lambda devs, g, i: crop(host(band_gop(devs, g)(
                 order(i), device_out=True))),
-            lambda devs, i: band_gop(devs, True).step_args(order(i))),
+            lambda devs, i: band_gop(devs, True).step_args(order(i)),
+            stack),
         "make_banded_frame_fn {band: 4}": frame({"band": 4}),
         "make_banded_p_recon_fn {band: 4}": (
             lambda devs, g, i: [tuple(host(p_run(devs, g)(
                 *p_cases[i][0], device_out=True)))],
-            lambda devs, i: p_run(devs, True).step_args(*p_cases[i][0])),
+            lambda devs, i: p_run(devs, True).step_args(*p_cases[i][0]),
+            lambda planes: [tuple(host(planes))]),
         "decode_gop_sharded {gop: 2, band: 2}": gop({"gop": 2, "band": 2}),
         "make_banded_frame_fn {gop: 2, band: 2}": frame({"gop": 2,
                                                         "band": 2}),
@@ -1179,7 +1209,7 @@ def sharded_routes(card, label, devs, paths, want, size=None):
     from dryv_tpu_torch import parallel
 
     ng = {}
-    for name, (call, step_args) in paths.items():
+    for name, (call, step_args, _) in paths.items():
         with slot_groups_of(size):
             key = step_args(devs, 0)[0]
             held = []
@@ -1221,7 +1251,7 @@ def one_card_wants(paths, refs, p_cases):
     held against `refs` (native C++, per frame, the pictures in order)
     or B4 on the whole plane."""
     want = {}
-    for name, (call, _) in paths.items():
+    for name, (call, _, _) in paths.items():
         want[name] = []
         for i in (0, 1):
             got = call(ONE_CARD, True, i)
@@ -1362,7 +1392,7 @@ def cards_numbers(card, cards, paths):
 
     n = len(set(cards))
     routes = {"1 card": ONE_CARD, f"{n} cards": cards}
-    for name, (call, step_args) in paths.items():
+    for name, (call, step_args, _) in paths.items():
         t = {}
         for r in list(routes) + list(routes)[::-1]:
             devs = routes[r]
@@ -1391,38 +1421,320 @@ def cards_numbers(card, cards, paths):
                   f"{r} {t[r][0][4]}" for r in routes) + f"  [{card}]")
 
 
+def back_to_back(card, cards, paths, want):
+    """Every path's graphed step over `cards`, its two input sets
+    alternated four times (P recon: its two pictures), each call's inputs
+    loaded from pinned host memory and its results held, with no
+    synchronisation between the calls; then each result bit-exact to the
+    one-card graphed route (itself checked against native C++ or B4 on
+    the whole plane).  A ghost band or a halo read before its load, or a
+    load or replay overwriting what an earlier call still reads, shows
+    here.  Fails on any difference."""
+    from dryv_tpu_torch.parallel import mesh
+
+    for name, (_, step_args, frames_of) in paths.items():
+        args = [step_args(cards, i) for i in (0, 1)]
+        pinned = [[x.pin_memory() for x in xs] for _, _, xs in args]
+        sync_all()
+        held = [(i, mesh.run_step(args[i][0], args[i][1], pinned[i]))
+                for i in (0, 1) * 4]
+        sync_all()
+        for k, (i, planes) in enumerate(held):
+            got = frames_of(planes)
+            if len(got) != len(want[name][i]) or not all(
+                    np.array_equal(x, y) for a, b in zip(got, want[name][i])
+                    for x, y in zip(a, b)):
+                fail(f"{name} over {cards}, graphed, call {k} of 8 back to "
+                     f"back (input set {i}), differs from the one-card "
+                     f"graphed route")
+        print(f"{name} over {cards}: 8 graphed calls back to back, input "
+              f"sets 0 and 1 in turns, pinned inputs, no synchronisation "
+              f"between them, each result held and bit-exact to the "
+              f"one-card graphed route (native C++ / B4 on the whole plane)"
+              f"  [{card}]")
+
+
+def in_graphs(key):
+    """Whether the step of `key` in ``parallel.STEPS`` runs its exchanges
+    inside its graphs: its ``Split`` has neither ``before`` nor ``after``
+    (an earlier tree's, run for comparison, has one or both, and copies
+    between and after the replays by design)."""
+    from dryv_tpu_torch import parallel
+
+    split = parallel.STEPS.steps[key].split
+    return all(getattr(split, a, None) is None for a in ("before", "after"))
+
+
+def card_stalls(card, cards, paths):
+    """For every path over the one-card route and over `cards`, graphed:
+    the per-call host ms line (``stall_line``) of the step's call
+    (``graphs.Step.__call__``: its replays and its results' copy, inputs
+    loaded before it) over 8 calls, input sets in turns, and of the whole
+    call (FrameSyntax or host arrays in, planes out) over 8 calls; over
+    `cards` the step's calls must take no cudaMalloc (``in_graphs``
+    steps)."""
+    from dryv_tpu_torch import graphs
+    from dryv_tpu_torch.parallel import mesh
+
+    n = len(set(cards))
+    for name, (call, step_args, _) in paths.items():
+        for label, devs in (("1 card", ONE_CARD), (f"{n} cards", cards)):
+            args = [step_args(devs, i) for i in (0, 1)]
+            mesh.run_step(*args[0])
+            sync_all()
+            with spans_around(graphs.Step, "__call__") as spans:
+                for k in range(8):
+                    mesh.run_step(*args[k % 2])
+            line = stall_line(f"{name} over {label}, graphed step", spans,
+                              card)
+            if devs is cards and in_graphs(args[0][0]) and line[
+                    "counts_window"].get("num_device_alloc", 0):
+                fail(f"{name} over {cards}: the graphed step's calls took "
+                     f"{line['counts_window']['num_device_alloc']} "
+                     f"cudaMalloc")
+            whole = types.SimpleNamespace(call=lambda i: call(devs, True, i))
+            sync_all()
+            with spans_around(whole, "call") as spans:
+                for k in range(8):
+                    whole.call(k % 2)
+            stall_line(f"{name} over {label}, graphed whole call", spans,
+                       card)
+
+
+def step_host_calls(card, cards, paths):
+    """The CUDA runtime calls of one graphed step over `cards` (its
+    inputs' loads and its call, inside one hold; CPU-activity
+    torch.profiler) for every path, beside its loads and results: a call
+    must launch one graph per part (a card) and copy nothing outside the
+    graphs but its loads and its results (``in_graphs`` steps; an
+    earlier tree's counts print ungated)."""
+    from dryv_tpu_torch import parallel
+
+    for name, (_, step_args, _) in paths.items():
+        key, make, xs = step_args(cards, 0)
+
+        def one():
+            with parallel.STEPS.hold(key, make, xs) as st:
+                st.load(*xs)
+                return st()
+
+        res = one()
+        st = parallel.STEPS.steps[key]
+        calls = host_calls_in_profile(one, STEP_CALLS)
+        parts = len(st.split.parts)
+        copies = sum(calls[k] for k in COPY_CALLS)
+        gated = in_graphs(key)
+        print(f"{name} over {cards}: CUDA runtime calls of one graphed "
+              f"step (load + call, CPU-activity torch.profiler) "
+              f"{json.dumps(calls)}; {parts} parts, {len(xs)} loads, "
+              f"{len(res)} results; copies outside the graphs {copies}"
+              f"{'' if gated else ' (an earlier tree: not gated)'}  "
+              f"[{card}]")
+        if gated and (calls["cudaGraphLaunch"] != parts
+                      or copies > len(xs) + len(res)):
+            fail(f"{name} over {cards}: a graphed step launched "
+                 f"{calls['cudaGraphLaunch']} graphs for {parts} parts or "
+                 f"made {copies} copies for {len(xs)} loads and "
+                 f"{len(res)} results")
+
+
+def call_phases(card, cards, paths):
+    """Each path's graphed whole call split by phase, on the one-card
+    route and over `cards`, median host ms of 4 calls (input sets in
+    turns): stacking the host inputs (``step_args``), their loads,
+    the step's call (replays and results' copy enqueued), the wait for
+    every card, and the results' copy to the host."""
+    from dryv_tpu_torch import parallel
+
+    n = len(set(cards))
+    cols = ("stack", "load", "step call", "device wait", "to host")
+    for name, (_, step_args, _) in paths.items():
+        out = {}
+        for label, devs in (("1 card", ONE_CARD), (f"{n} cards", cards)):
+            ms = []
+            for k in range(4):
+                sync_all()
+                t = [time.perf_counter()]
+                key, make, xs = step_args(devs, k % 2)
+                t.append(time.perf_counter())
+                with parallel.STEPS.hold(key, make, xs) as st:
+                    st.load(*xs)
+                    t.append(time.perf_counter())
+                    planes = st()
+                t.append(time.perf_counter())
+                sync_all()
+                t.append(time.perf_counter())
+                [p.cpu() for p in planes]
+                t.append(time.perf_counter())
+                ms.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+            out[label] = [statistics.median(c) for c in zip(*ms)]
+        print(f"{name}, graphed whole call by phase, median host ms of 4 "
+              f"(" + ", ".join(cols) + "): " + "; ".join(
+                  f"{label} " + ", ".join(f"{v:.3f}" for v in vals)
+                  for label, vals in out.items()) + f"  [{card}]")
+
+
+# the small graphs of replay_costs: one kernel, and beside it the nodes a
+# part's graph holds over several cards
+REPLAY_VARIANTS = ("kernel", "kernel + copy on its card",
+                   "kernel + peer copy", "kernel + external event record",
+                   "kernel + external event wait", "wait + kernel + peer "
+                   "copy + record")
+
+
+def replay_costs(card, cards, paths, rounds=200):
+    """Host ms of a graph launch (``CUDAGraph.replay`` under
+    ``torch.cuda.device`` of its card, as ``graphs.Step`` replays a part)
+    on each of `cards`, median of `rounds` rounds that launch one graph a
+    card in card order, for small graphs: one kernel (a 16 KiB add), and
+    beside it a 16 KiB copy on its card, a 16 KiB copy into another card
+    (``graphs.peer_copy``), an external event record, a wait on an
+    external event recorded on another card, and all of these as a part
+    over several cards holds them; the host ms of a device switch alone
+    and of a stream's wait on an external event.  Then, for every path's
+    graphed step over `cards` and on one card, the host ms of each part's
+    replay and of the rest of the step's call (20 calls, medians)."""
+    from dryv_tpu_torch import graphs, parallel
+    from dryv_tpu_torch.parallel import mesh
+
+    devs = [torch.device(d) for d in dict.fromkeys(cards)]
+    mesh.enable_peers(devs)
+    # an earlier tree, run for comparison, has it in mesh
+    peer_copy = getattr(graphs, "peer_copy", None) or mesh.peer_copy
+    src = {d: torch.zeros(1 << 14, dtype=torch.uint8, device=d) for d in devs}
+    dst = {d: torch.zeros(1 << 14, dtype=torch.uint8, device=d) for d in devs}
+    rec = {d: torch.cuda.Event(external=True) for d in devs}
+    stale = {d: torch.cuda.Event(external=True) for d in devs}
+    for d in devs:
+        stale[d].record(torch.cuda.current_stream(d))
+    made = {}
+    for d in devs:
+        other = devs[1] if d == devs[0] else devs[0]
+        for v in REPLAY_VARIANTS:
+            with torch.cuda.device(d):
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, stream=graphs._capture_stream(d)):
+                    cur = torch.cuda.current_stream()
+                    if "wait" in v:
+                        cur.wait_event(stale[other])
+                    src[d].add_(1)
+                    if v == "kernel + copy on its card":
+                        peer_copy(dst[d], src[d])
+                    elif "peer copy" in v:
+                        peer_copy(dst[other], src[d])
+                    if "record" in v:
+                        rec[d].record(cur)
+            made[d, v] = g
+    sync_all()
+
+    def rounds_of(fn):
+        ms = {d: [] for d in devs}
+        for r in range(rounds):
+            for d in devs:
+                t0 = time.perf_counter()
+                fn(d)
+                ms[d].append((time.perf_counter() - t0) * 1e3)
+            if r % 50 == 49:
+                sync_all()
+        sync_all()
+        return [round(statistics.median(ms[d]), 4) for d in devs]
+
+    def launch(v):
+        def fn(d):
+            with torch.cuda.device(d):
+                made[d, v].replay()
+        return fn
+
+    out = {v: rounds_of(launch(v)) for v in REPLAY_VARIANTS}
+
+    def switch(d):
+        with torch.cuda.device(d):
+            pass
+
+    out["device switch alone"] = rounds_of(switch)
+    out["first card's stream waits on an external event"] = rounds_of(
+        lambda d: torch.cuda.current_stream(devs[0]).wait_event(stale[d]))
+    print(f"graph launch host ms on cards {[str(d) for d in devs]} "
+          f"(median of {rounds} rounds, one launch a card a round): "
+          f"{json.dumps(out)}  [{card}]")
+    del made
+    n = len(devs)
+    for name, (_, step_args, _) in paths.items():
+        res = {}
+        for label, on in (("1 card", ONE_CARD), (f"{n} cards", cards)):
+            key, make, xs = step_args(on, 0)
+            mesh.run_step(key, make, xs)
+            sync_all()
+            st = parallel.STEPS.steps[key]
+            part_of = {id(g): i for i, g in enumerate(st.graphs)}
+            per = [[] for _ in st.graphs]
+            with host_ms_of(graphs.Step, "__call__") as call_ms:
+                orig = torch.cuda.CUDAGraph.replay
+
+                def timed(g):
+                    t0 = time.perf_counter()
+                    orig(g)
+                    per[part_of[id(g)]].append(
+                        (time.perf_counter() - t0) * 1e3)
+
+                torch.cuda.CUDAGraph.replay = timed
+                try:
+                    for _ in range(20):
+                        mesh.run_step(key, make, xs)
+                finally:
+                    torch.cuda.CUDAGraph.replay = orig
+            sync_all()
+            replays = [statistics.median(m) for m in per]
+            whole = statistics.median(call_ms)
+            res[label] = {"replay_ms_by_part": [round(x, 4)
+                                                for x in replays],
+                          "call_ms": round(whole, 4),
+                          "rest_of_call_ms": round(whole - sum(replays), 4)}
+        print(f"{name}, graphed step's call, host ms by part (median of 20 "
+              f"calls; the part's devices "
+              f"{[str(d) for d, _, _ in st.split.parts]}): "
+              f"{json.dumps(res)}  [{card}]")
+
+
 def multi_card_phase(card, cards, paths, want, gop_stream, nthreads):
     """The sharded paths over the 4 slots `cards` (several cards, repeated
     when fewer than 4), graphed and eager in turns against the one-card
-    graphed route, native C++ and B4 on the whole plane; the dry run over
-    cards * 2; their numbers beside the one-card route's.  Returns the
-    census segments and entries, and the host-side launch counts to take
-    after the census."""
+    graphed route, native C++ and B4 on the whole plane, and graphed back
+    to back with no synchronisation; the dry run over cards * 2; their
+    numbers beside the one-card route's (in turns, per-call host ms,
+    whole calls by phase, replay costs).  Returns the census segments
+    and entries, and the host-side launch counts to take after the
+    census."""
     from dryv_tpu_torch import parallel
 
     n = len(set(cards))
     label = f"{cards}"
     sharded_routes(card, label, cards, paths, want)
+    back_to_back(card, cards, paths, want)
     e0 = parallel.STEPS.eager
     parallel.dryrun_multichip(8, cards * 2, stream=gop_stream,
                               n_threads=nthreads)
     if parallel.STEPS.eager != e0:
         fail("dryrun_multichip over several cards counted eager calls")
     cards_numbers(card, cards, paths)
+    card_stalls(card, cards, paths)
+    call_phases(card, cards, paths)
+    replay_costs(card, cards, paths)
     segments, entries = [], []
-    for name, (call, _) in paths.items():
+    for name, (call, _, _) in paths.items():
         segs, eager = card_census_segments(f"{name} over {n} cards", call,
                                            cards)
         segments += segs
         entries.append((f"{name} over {n} cards", eager))
 
     def host_side():
-        for name, (call, _) in paths.items():
+        for name, (call, _, _) in paths.items():
             print(f"{name}: CUDA runtime calls of a graphed whole call "
                   f"(CPU-activity torch.profiler): 1 card "
                   f"{host_calls_in_profile(lambda: call(ONE_CARD, True, 0))}"
                   f", {n} cards "
                   f"{host_calls_in_profile(lambda: call(cards, True, 0))}")
+        step_host_calls(card, cards, paths)
         st = parallel.STEPS.stats()
         print(f"captured steps of the sharded paths: {json.dumps(st)}  "
               f"[{card}]")
@@ -2878,9 +3190,8 @@ def main():
                     torch.cuda.set_sync_debug_mode(0)
             return run
 
-        self.split = graphs.Split([(d, n, checked(fn))
-                                   for d, n, fn in split.parts],
-                                  split.after, split.before)
+        self.split = copy.copy(split)
+        self.split.parts = [(d, n, checked(fn)) for d, n, fn in split.parts]
         try:
             capture(self)
         finally:

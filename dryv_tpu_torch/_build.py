@@ -33,7 +33,7 @@ ENTRIES = {
     "dt_intra_wavefront": "pppppppppppppiii",
     "dt_deblock": "pppppiii",
     "dt_inter_mc": "p" * 14 + "i" * 10,
-    "dt_peer_copy": "ppi",
+    "dt_peer_copy": "ppiiii",
     "dt_stage_a": "p" * 15 + "i" * 11,
     "dt_deblock_params": "p" * 15 + "i" * 5,
 }
@@ -114,9 +114,9 @@ def check_cuda(*tensors):
             raise ValueError("kernel inputs must be contiguous")
 
 
-def call(name: str, *args):
-    """Launch C entry `name` on the current stream; raise on any CUDA
-    error it reports."""
+def call(name: str, *args, device=None):
+    """Launch C entry `name` on the current stream of `device` (default:
+    the first pointer's); raise on any CUDA error it reports."""
     h = lib()
     kinds = ENTRIES[name]
     if len(args) != len(kinds):
@@ -124,8 +124,8 @@ def call(name: str, *args):
     cargs = [int(a) if k == "i" else
              ctypes.c_void_p(None if a is None else a.data_ptr())
              for k, a in zip(kinds, args)]
-    dev = next(a.device for k, a in zip(kinds, args)
-               if k == "p" and a is not None)
+    dev = device or next(a.device for k, a in zip(kinds, args)
+                         if k == "p" and a is not None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(h, name)(*cargs, ctypes.c_void_p(stream))

@@ -1,20 +1,24 @@
 // Copies between the cards of a mesh, for the sharded paths
-// (parallel/mesh.py peer_copy).  Counterpart of the halo and apron moves
+// (graphs.py peer_copy).  Counterpart of the halo and apron moves
 // that dryv_tpu/parallel/bands.py makes with jax.lax.ppermute over ICI.
 //
-// A raw cudaMemcpyAsync over unified addresses on the sending card's
-// stream: no event, no stream of the receiving card, no allocation, so it
-// can be captured into the sending card's CUDA graph as a memcpy node (a
-// PyTorch copy between cards synchronises with the receiving card's
-// current stream, which fails a capture).  Bound by bytes over NVLink
-// (450 GB/s each way on an H100 SXM host); a halo is a few KB, so the
-// pipeline sees the copy's latency, not its bandwidth.
+// A raw cudaMemcpy2DAsync over unified addresses on the given stream of
+// either card (the sender's for a halo or a group's planes, the
+// receiver's for a ghost band it pulls): no event, no stream of the other
+// card, no allocation, so it can be captured into that card's CUDA graph
+// as a memcpy node (a PyTorch copy between cards synchronises with the
+// other card's current stream, which fails a capture).  It copies
+// `height` rows of `width` bytes that lie `spitch` / `dpitch` bytes apart
+// (a band's rows of every frame of a plane stack; one row for a
+// contiguous tensor).  Bound by bytes over NVLink (450 GB/s each way on
+// an H100 SXM host); a halo is a few KB, so the pipeline sees the copy's
+// latency, not its bandwidth.
 #include "common.cuh"
 
-DT_EXPORT int dt_peer_copy(const void* src, void* dst, int nbytes,
-                           void* stream) {
-  cudaMemcpyAsync(dst, src, (size_t)nbytes, cudaMemcpyDefault,
-                  (cudaStream_t)stream);
+DT_EXPORT int dt_peer_copy(const void* src, void* dst, int width, int height,
+                           int spitch, int dpitch, void* stream) {
+  cudaMemcpy2DAsync(dst, (size_t)dpitch, src, (size_t)spitch, (size_t)width,
+                    (size_t)height, cudaMemcpyDefault, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

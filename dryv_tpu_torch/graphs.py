@@ -48,15 +48,22 @@ A graph captures one device's work and draws on that device's pool, so a
 step over several devices is a ``Split``: one part per group of slots,
 each with its own static inputs, captured as a graph of its own on its
 device (that device's pool and capture stream) and replayed under
-``torch.cuda.device`` of it.  An edge between two parts' graphs is a raw
-peer copy captured on the sending device into a static buffer of the
-receiving one, then an external event (``torch.cuda.Event(external=
-True)``) recorded in the sender's graph and waited on in the receiver's;
-the parts warm up, capture and replay in order, so such an edge runs
-from a part to a later one.  What a part needs from an earlier or a later
-part's static inputs is copied outside the graphs before the replays
-(``Split.before``); the parts' outputs meet on one device after them
-(``Split.after``).
+``torch.cuda.device`` of it.  Every exchange between parts runs inside
+their graphs, as the JAX package's ``ppermute``s run inside its one
+jitted ``shard_map`` program, by raw peer copies (``peer_copy``): an
+edge from a part to a later one (a band's halo) is a copy captured on
+the sending device into a static buffer of the receiving one, then an
+external event (``torch.cuda.Event(external=True)``) recorded in the
+sender's graph and waited on in the receiver's; what a part reads of
+other parts' static inputs (``Split.reads``: banded P recon's ghost
+bands) it pulls on its own capture stream; and each part copies its
+outputs into its slices of the step's planes on the first device, which
+the step allocates once, and then records an external event.  A call
+replays the parts in their order; outside the graphs the host adds only
+the loads, event records and the waits no graph can hold: a part's
+replay after the loads of the inputs it reads, those inputs' next loads
+after that replay, and the first device's copy of the results after the
+parts on the other devices (``Step``).
 
 The kernels' launch counters move only where a wrapper launches its
 kernel: in eager runs, a step's warm-up, and the capture, which records
@@ -73,6 +80,8 @@ from collections import OrderedDict
 
 import torch
 
+from . import _build
+
 
 def _static_like(x, device):
     """A static input for `x`: a tensor, or a sequence of equal tensors,
@@ -84,27 +93,109 @@ def _static_like(x, device):
 
 
 class Split:
-    """A step's function cut into parts, and callable as that function:
-    ``parts`` is a list of (device, n, fn), fn taking the step's next n
-    inputs (on `device`) and returning a tuple of tensors there.  ``after(outs)``, given each
-    part's outputs in order, returns the step's results as new tensors
-    (None: the one part's outputs, cloned on a replay); ``before(inputs)``
-    runs after the static inputs are loaded and before the parts, outside
-    any graph."""
+    """A step's function cut into parts, and callable as that function.
 
-    def __init__(self, parts, after=None, before=None):
-        self.parts, self.after, self.before = parts, after, before
+    ``parts`` is a list of (device, n, fn): fn takes the step's next n
+    inputs (on `device`), then the step's inputs that ``reads[i]`` names
+    by index (other parts' inputs, on their devices: the part copies
+    what it needs of them itself), and returns a tuple of tensors on
+    `device`.  One part's outputs are the step's planes; several parts
+    each write theirs into their slices of the step's planes on the first
+    part's device, stacked along `dim` in part order, by ``peer_copy``,
+    which a capture on the part's device can hold.  The step's results
+    are ``view(planes)``: views of them (default: the planes)."""
+
+    def __init__(self, parts, dim=0, view=None, reads=None):
+        self.parts, self.dim = parts, dim
+        self.view = view or tuple
+        self.reads = reads or [()] * len(parts)
+
+    def run(self, i, ins):
+        """Part i's outputs on the step's inputs `ins` (every part's)."""
+        lo = sum(n for _, n, _ in self.parts[:i])
+        _, n, fn = self.parts[i]
+        return tuple(fn(*ins[lo:lo + n], *(ins[j] for j in self.reads[i])))
+
+    def planes_for(self, outs):
+        """The step's planes for the parts' outputs `outs`, new on the
+        first part's device, and each part's slices of them."""
+        planes, slices = [], [[] for _ in outs]
+        for p, o in enumerate(outs[0]):
+            sizes = [out[p].shape[self.dim] for out in outs]
+            shape = list(o.shape)
+            shape[self.dim] = sum(sizes)
+            plane = torch.empty(shape, dtype=o.dtype,
+                                device=self.parts[0][0])
+            off = 0
+            for sl, n in zip(slices, sizes):
+                sl.append(plane.narrow(self.dim, off, n))
+                off += n
+            planes.append(plane)
+        return tuple(planes), slices
+
+    def put(self, outs, slices):
+        """A part's outputs into its `slices` of the planes."""
+        for dst, src in zip(slices, outs):
+            peer_copy(dst, src)
+
+    def gather(self, outs, slices):
+        """Every part's outputs `outs` into its `slices` of the planes,
+        op by op: the first part's device waits for each part's copy."""
+        for (d, _, _), out, sl in zip(self.parts, outs, slices):
+            self.put(out, sl)
+            _wait_for(self.parts[0][0], {d})
 
     def __call__(self, *ins):
         """The split function run op by op on inputs `ins` already on the
-        parts' devices: ``before``, each part in order, ``after``."""
-        if self.before is not None:
-            self.before(ins)
-        outs, i = [], 0
-        for _, n, fn in self.parts:
-            outs.append(tuple(fn(*ins[i:i + n])))
-            i += n
-        return outs[0] if self.after is None else self.after(outs)
+        parts' devices: each part after the devices whose inputs it reads,
+        then their outputs gathered into new planes on the first part's
+        device."""
+        for i, (d, _, _) in enumerate(self.parts):
+            _wait_for(d, {ins[j].device for j in self.reads[i]})
+        outs = [self.run(i, ins) for i in range(len(self.parts))]
+        if len(outs) == 1:
+            return self.view(outs[0])
+        planes, slices = self.planes_for(outs)
+        self.gather(outs, slices)
+        return self.view(planes)
+
+
+def peer_copy(dst: torch.Tensor, src: torch.Tensor, pull=False) -> None:
+    """dst[...] = src, card to card on the current stream of src's card,
+    or with `pull` of dst's (raw ``cudaMemcpy2DAsync``, C entry
+    ``dt_peer_copy``: it waits for no stream of the other card, so a
+    capture on the stream's card can hold it; the caller orders the other
+    card by an event); on the CPU a plain copy.  Each tensor must be
+    contiguous, or contiguous past its leading axis (its rows lie apart:
+    a band's rows of every frame of a plane stack)."""
+    if src.device.type != "cuda":
+        dst.copy_(src)
+        return
+    if dst.dtype != src.dtype or dst.shape != src.shape:
+        raise ValueError(f"peer_copy: {tuple(src.shape)} {src.dtype} into "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    es = src.element_size()
+    if src.is_contiguous() and dst.is_contiguous():
+        width = src.numel() * es
+        height, sp, dp = 1, width, width
+    elif src.dim() > 1 and src[0].is_contiguous() and dst[0].is_contiguous():
+        width, height = src[0].numel() * es, src.shape[0]
+        sp, dp = src.stride(0) * es, dst.stride(0) * es
+    else:
+        raise ValueError("peer_copy: rows past the leading axis must be "
+                         "contiguous")
+    _build.call("dt_peer_copy", src, dst, width, height, sp, dp,
+                device=dst.device if pull else src.device)
+
+
+def _wait_for(device, sources):
+    """The current stream of `device` waits for the work already enqueued
+    on the current stream of each CUDA device in `sources`."""
+    for s in sources:
+        if s != device and s.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(s))
+            torch.cuda.current_stream(device).wait_event(ev)
 
 
 class Step:
@@ -112,105 +203,152 @@ class Step:
     over static inputs shaped like `like` (see ``_static_like``) on
     `device`, or a ``Split`` whose parts each hold their own share of
     them; on CUDA each part is captured into the graph pool of its device
-    (``pool_of(device)``)."""
+    (``pool_of(device)``).  ``outputs`` are its static planes (a split's:
+    allocated once on its first device, outside the pools).
+
+    Over several devices each part's graph ends by recording an external
+    event (``done``), and the order between cards is kept by event waits:
+    a part on another device waits in its graph for the first device's
+    copy of the last call's results (``taken``) before it writes the
+    planes again; the first device's stream waits for the parts on the
+    other devices (``others``) before the results' copy; a load waits
+    for the replays that read its inputs, and a part that reads them
+    waits for the load."""
 
     def __init__(self, key, fn, like, device=None, pool_of=None):
         self.key = key
         self.split = fn if isinstance(fn, Split) else Split(
             [(device, len(like), fn)])
-        devs = [d for d, n, _ in self.split.parts for _ in range(n)]
+        parts = self.split.parts
+        devs = [d for d, n, _ in parts for _ in range(n)]
         if len(devs) != len(like):
-            raise TypeError(f"step parts take {len(devs)} inputs, "
+            raise TypeError(f"step takes {len(devs)} inputs, "
                             f"{len(like)} given")
-        self.devices = list(dict.fromkeys(d for d, _, _ in
-                                          self.split.parts))
+        self.devices = list(dict.fromkeys(d for d, _, _ in parts))
         self.pool_of = pool_of or (lambda d: None)
         self.inputs = [_static_like(x, d) for x, d in zip(like, devs)]
-        self.part_outputs = None   # each part's static outputs
+        first = self.devices[0]
+        self.others = [i for i, (d, _, _) in enumerate(parts) if d != first]
+        # the devices each part reads (besides its own), and each
+        # device's readers
+        self.reads = [{devs[j] for j in r} - {d} for (d, _, _), r in
+                      zip(parts, self.split.reads)]
+        self.readers = {s: [i for i, r in enumerate(self.reads) if s in r]
+                        for s in set().union(*self.reads)}
+        self.outputs = None        # the static planes (None before a call)
+        self.slices = None         # each part's slices of them
         self.graphs = None         # one per part
+        self.done = None           # per part: the event its graph ends on
+        self.loaded = self.taken = None
+        if first.type == "cuda" and len(self.devices) > 1:
+            self.loaded = {s: torch.cuda.Event() for s in self.readers}
+            self.taken = torch.cuda.Event(external=True)
         self.replays = 0
         self.capture_ms = 0.0
 
     def load(self, *xs):
         """Copy this call's inputs into the static inputs (enqueued on
         the current stream of each one's device; a pinned host source
-        copies asynchronously)."""
+        copies asynchronously), each device's after the last replays
+        that read them; a part that reads another device's inputs then
+        waits for their copies."""
         if len(xs) != len(self.inputs):
             raise TypeError(f"step takes {len(self.inputs)} inputs")
+        cur = torch.cuda.current_stream
+        if self.loaded is not None and self.done is not None:
+            for s, parts in self.readers.items():
+                for i in parts:
+                    cur(s).wait_event(self.done[i])
         for s, x in zip(self.inputs, xs):
             if isinstance(x, (list, tuple)):
                 for i, t in enumerate(x):
                     s[i].copy_(t, non_blocking=True)
             else:
                 s.copy_(x, non_blocking=True)
-
-    def _parts(self):
-        """(device, fn, its static inputs) of each part, in order."""
-        i = 0
-        for d, n, fn in self.split.parts:
-            yield d, fn, self.inputs[i:i + n]
-            i += n
-
-    @property
-    def outputs(self):
-        """Every part's static outputs, in order (None before the first
-        call)."""
-        if self.part_outputs is None:
-            return None
-        return tuple(o for out in self.part_outputs for o in out)
+        if self.loaded:
+            for s, ev in self.loaded.items():
+                ev.record(cur(s))
+            for (d, _, _), r in zip(self.split.parts, self.reads):
+                for s in r:
+                    cur(d).wait_event(self.loaded[s])
 
     def __call__(self, out=None):
-        """Run the step on the loaded inputs; returns ``after`` of the
-        parts' outputs, or copies of the one part's outputs: in `out` (a
-        tensor for each, enqueued on the current stream) when given, else
-        in clones."""
-        if self.split.before is not None:
-            self.split.before(self.inputs)
-        if self.devices[0].type != "cuda":
-            outs = [tuple(fn(*xs)) for _, fn, xs in self._parts()]
-            if self.part_outputs is None:
-                self.part_outputs = [tuple(torch.empty_like(o) for o in out)
-                                     for out in outs]
-            for s, o in zip(self.outputs, (o for out in outs for o in out)):
-                s.copy_(o)
+        """Run the step on the loaded inputs; returns copies of its
+        results (``view`` of its planes): in `out` (a tensor for each,
+        enqueued on the current stream) when given, else in clones.  On
+        CUDA: the replays, in part order, and the waits for ``others``."""
+        split, first = self.split, self.devices[0]
+        if first.type != "cuda":
+            outs = [split.run(i, self.inputs)
+                    for i in range(len(split.parts))]
+            if self.outputs is None:
+                self.outputs, self.slices = split.planes_for(outs)
+            split.gather(outs, self.slices)
         else:
             if self.graphs is None:
                 self._capture()
-            for (d, _, _), g in zip(self.split.parts, self.graphs):
+            for (d, _, _), graph in zip(split.parts, self.graphs):
                 with torch.cuda.device(d):
-                    g.replay()
+                    graph.replay()
+            for i in self.others:
+                torch.cuda.current_stream(first).wait_event(self.done[i])
         self.replays += 1
-        if self.split.after is not None:
-            return self.split.after(self.part_outputs)
+        res = split.view(self.outputs)
         if out is None:
-            return tuple(o.clone() for o in self.outputs)
-        for d, o in zip(out, self.outputs):
-            d.copy_(o, non_blocking=True)
-        return tuple(out)
+            res = tuple(o.clone() for o in res)
+        else:
+            for d, o in zip(out, res):
+                d.copy_(o, non_blocking=True)
+            res = tuple(out)
+        if self.taken is not None:
+            self.taken.record(torch.cuda.current_stream(first))
+        return res
 
     def _capture(self):
         """Warm every part up on a side stream of its device, in order
-        (the cross-part edges see the same order as in a replay), then
-        capture each on its device's capture stream into its pool."""
+        (the cross-part edges see the same order as in a replay), then,
+        for several parts, allocate the planes on the first device, and
+        capture each part on its device's capture stream into its pool:
+        its function, then (several parts) the wait for the last call's
+        results' copy, the copy of its outputs into its slices, and its
+        external event."""
         t0 = time.perf_counter()
-        parts = list(self._parts())
-        for d, fn, xs in parts:
+        split, first = self.split, self.devices[0]
+        n = len(split.parts)
+        warm = []
+        for d, _, _ in split.parts:
             with torch.cuda.device(d):
                 cur = torch.cuda.current_stream()
                 side = torch.cuda.Stream()
                 side.wait_stream(cur)
                 with torch.cuda.stream(side):
-                    fn(*xs)
+                    warm.append(split.run(len(warm), self.inputs))
                 cur.wait_stream(side)
-        graphs, outs = [], []
-        for d, fn, xs in parts:
+        if n > 1:
+            with torch.cuda.device(first):
+                self.outputs, self.slices = split.planes_for(warm)
+        del warm
+        if self.taken is not None:
+            # a wait captured on an event never recorded is no wait
+            self.taken.record(torch.cuda.current_stream(first))
+        graphs, done = [], []
+        for i, (d, _, _) in enumerate(split.parts):
             with torch.cuda.device(d):
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=self.pool_of(d),
                                       stream=_capture_stream(d)):
-                    outs.append(tuple(fn(*xs)))
+                    cur = torch.cuda.current_stream()
+                    outs = split.run(i, self.inputs)
+                    if n > 1:
+                        if d != first and self.taken is not None:
+                            cur.wait_event(self.taken)
+                        split.put(outs, self.slices[i])
+                        done.append(torch.cuda.Event(external=True))
+                        done[i].record(cur)
             graphs.append(graph)
-        self.graphs, self.part_outputs = graphs, outs
+        if n == 1:
+            self.outputs = outs
+        self.graphs, self.done = graphs, done
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def release(self):
@@ -218,7 +356,7 @@ class Step:
         pools and the allocator."""
         for g in self.graphs or ():
             g.reset()
-        self.graphs = self.part_outputs = None
+        self.graphs = self.outputs = self.slices = self.done = None
         self.inputs = []
 
 

@@ -12,7 +12,9 @@ ahead), so on one card the bands overlap.  Each group of bands on one
 device (``mesh.slot_groups``) replays as one captured CUDA graph, streams,
 events and copies included; a halo that crosses from one group to the
 next is copied card to card inside the sending group's graph into a
-static buffer of the receiving group, and ordered by an external event.
+static buffer of the receiving group, and ordered by an external event,
+and each group's graph copies its rows of the planes into the step's
+planes on the first band's device.
 Intra without the in-loop filter: filtering across a band boundary needs
 a back-edge fixup, as the JAX version says.
 
@@ -28,15 +30,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..graphs import Split
+from ..graphs import Split, peer_copy
 from ..kernels.inter import mc_frame
 from ..kernels.transform import stage_a
 from ..kernels.wavefront import intra_recon, recon_inputs
 from ..pipeline import tables_for
 from ..syntax import stack_frames, syntax_tensors
-from .mesh import (enable_peers, fork_streams, join_streams, on_stream,
-                   order_after, peer_copy, run_eager, run_step, slot_groups,
-                   slot_streams, step_key)
+from .mesh import (cat, enable_peers, fork_streams, join_streams, on_stream,
+                   run_eager, run_step, slot_groups, slot_streams, step_key)
 
 
 @lru_cache(maxsize=None)
@@ -154,8 +155,9 @@ class BandedGop:
         """The step's parts, one per group of bands: each runs
         ``reconstruct`` on its bands; a group below another takes its
         first band's halos from static buffers that the group above
-        fills (``_Halos``).  The groups' planes meet on the first band's
-        device after the parts, cropped."""
+        fills (``_Halos``).  Each group's rows go into the step's planes
+        on the first band's device (``graphs.peer_copy``); the results are
+        those planes cropped."""
         k, devs = len(names), self.devs
         streams = slot_streams(devs)
         halos = _Halos(devs, groups, self.F // self.Fi, self.Fi, self.mb_w)
@@ -169,12 +171,10 @@ class BandedGop:
                 [streams[i] for i in g], recv, send)
 
         return Split([(devs[g.start], k * len(g), part(g)) for g in groups],
-                     after=lambda outs: self.crop(tuple(
-                         torch.cat([o[p].to(devs[0]) for o in outs], 1)
-                         for p in range(3))))
+                     dim=1, view=self.crop)
 
     def crop(self, planes):
-        """(y, cb, cr) cut to the picture's MB rows."""
+        """(y, cb, cr) cut to the picture's MB rows: views."""
         return tuple(p[:, :(16 if i == 0 else 8) * self.mb_h]
                      for i, p in enumerate(planes))
 
@@ -185,8 +185,8 @@ class BandedGop:
         group g is ``recv(g)`` -> (halo, event to wait for), or a zero
         halo for band 0, as the JAX carry; the last band hands group g's
         planes to ``send(g, y, cb, cr)`` when a band lies below it.
-        Returns the bands' planes stacked along their rows on the first
-        band's device, uncropped."""
+        Returns the bands' planes stacked along their rows on their
+        device (a group's bands share one), uncropped."""
         nb, Fi = len(syn), self.Fi
         devs = self.devs[lo:lo + nb]
         mb_w, rows, G = self.mb_w, self.rows, self.F // Fi
@@ -235,9 +235,8 @@ class BandedGop:
                     if streams[b] is not None:
                         pl[p].record_stream(
                             torch.cuda.current_stream(devs[b]))
-                parts.append(torch.cat([pl[p] for pl in planes[b]])
-                             .to(devs[0]))
-            out.append(torch.cat(parts, 1))
+                parts.append(cat([pl[p] for pl in planes[b]]))
+            out.append(cat(parts, 1))
         return tuple(out)
 
 
@@ -398,11 +397,13 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
     band's reference rows, vectors, slots and residuals are copied into
     the static inputs of the key's step (slot devices, axis, mb_w, mb_h,
     apron, and the slot groups when there are several), and each group
-    of bands on one device replays the apron hops among its bands, B4
-    and the residual add as a CUDA graph of its own (``mesh.STEPS``).  A
-    group takes the reference rows of the bands around it that its
-    aprons reach (ghost bands) card to card before the replays, and the
-    groups' planes meet on the first band's device after them.
+    of bands on one device replays as a CUDA graph of its own
+    (``mesh.STEPS``): it pulls the reference rows of the bands around it
+    that its aprons reach (ghost bands) card to card from their owners'
+    static inputs, then runs the apron hops among its bands, B4 and the
+    residual add, and copies its rows into the step's planes on the
+    first band's device, as the JAX version's aprons arrive by
+    ``ppermute`` inside its one jitted program.
     ``graph=False`` enqueues the same parts op by op on the inputs copied
     to the bands' devices, counted in ``STEPS.eager``.  ``run.graphed``
     says which; ``run.step_args(*args)`` gives a call's key, the step's
@@ -455,59 +456,54 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
 
 def _p_recon_split(devs, groups, mb_w, hb, A):
     """Banded P recon's step as one part per group of bands.  A group's
-    ghost bands, the ceil(A / rows) bands on each side of it that its
-    aprons reach, are static buffers on its device, filled card to card
-    from their owners' static inputs before the parts run (``before``);
-    the groups' planes meet on devs[0] after them."""
+    ghost bands are the ceil(A / rows) bands on each side of it that its
+    aprons reach: the part reads their reference rows (``Split.reads``)
+    and pulls them to its device itself; its rows of the planes go into
+    the step's planes on devs[0]."""
     B = len(devs)
     streams = slot_streams(devs)
     enable_peers(devs)
     m = -(-A // (16 * hb))
-    shapes = [((16 * hb, 16 * mb_w), 0), ((8 * hb, 8 * mb_w), 1),
-              ((8 * hb, 8 * mb_w), 2)]
-    ghosts = []          # per group: ([(band, planes)] above, below)
+    parts, reads = [], []
     for g in groups:
-        d = devs[g.start]
-        ghosts.append(tuple(
-            [(b, [torch.empty(shp, dtype=torch.uint8, device=d)
-                  for shp, _ in shapes]) for b in bands]
-            for bands in (range(max(0, g.start - m), g.start),
-                          range(g.stop, min(B, g.stop + m)))))
-
-    def before(ins):
-        for up, down in ghosts:
-            for b, bufs in up + down:
-                for dst, (_, p) in zip(bufs, shapes):
-                    peer_copy(dst, ins[7 * b + p])
-        order_after([devs[g.start] for g in groups],
-                    [devs[g.start] for g in groups])
-
-    parts = [(devs[g.start], 7 * len(g),
-              _p_recon_fn([devs[i] for i in g], [streams[i] for i in g],
-                          mb_w, hb, A, B, g.start,
-                          ([p for _, p in up], [p for _, p in down])))
-             for g, (up, down) in zip(groups, ghosts)]
-    return Split(parts, before=before, after=lambda outs: tuple(
-        torch.cat([o[p].to(devs[0]) for o in outs]) for p in range(3)))
+        ghosts = (range(max(0, g.start - m), g.start),
+                  range(g.stop, min(B, g.stop + m)))
+        parts.append((devs[g.start], 7 * len(g),
+                      _p_recon_fn([devs[i] for i in g],
+                                  [streams[i] for i in g], mb_w, hb, A, B,
+                                  g.start, len(ghosts[0]))))
+        reads.append(tuple(7 * b + p for bands in ghosts for b in bands
+                           for p in range(3)))
+    return Split(parts, reads=reads)
 
 
-def _p_recon_fn(devs, streams, mb_w, hb, A, B, first=0, ghosts=([], [])):
+def _p_recon_fn(devs, streams, mb_w, hb, A, B, first=0, n_up=0):
     """A part's function, captured or run op by op: fn(*each of its
     bands' ref_y, ref_cb, ref_cr rows, mv, slots, y_resid, c_resid on its
-    device) -> (y, cb, cr) of those bands stacked on devs[0].  Its bands
-    are bands first, first + 1, ... of B; ghosts: the (y, cb, cr) rows of
-    the bands above and below them that the aprons reach, on devs[0] and
-    devs[-1].  The slot streams fork from the current stream; the apron
-    hops, B4 and the residual add run on each band's stream, and the
-    planes are stacked after the join."""
+    device, *the (ref_y, ref_cb, ref_cr) rows of its ghost bands on their
+    owners' devices, the n_up above its bands first) -> (y, cb, cr) of
+    its bands stacked on its device (a group's bands share one).  Its
+    bands are bands first, first + 1, ... of B.  The ghost rows are
+    pulled card to card on the current stream (``graphs.peer_copy``), the
+    slot streams fork from it; the apron hops, B4 and the residual add
+    run on each band's stream, and the planes are stacked after the
+    join."""
     nb = len(devs)
-    up, down = ghosts
-    gdevs = [devs[0]] * len(up) + list(devs) + [devs[-1]] * len(down)
-    gstreams = ([streams[0]] * len(up) + list(streams)
-                + [streams[-1]] * len(down))
-    keep = range(len(up), len(up) + nb)
+    dev = devs[0]
 
     def fn(*xs):
+        ghosts = []
+        for i in range(7 * nb, len(xs), 3):
+            bufs = tuple(torch.empty_like(x, device=dev)
+                         for x in xs[i:i + 3])
+            for dst, src in zip(bufs, xs[i:i + 3]):
+                peer_copy(dst, src, pull=True)
+            ghosts.append(bufs)
+        up, down = ghosts[:n_up], ghosts[n_up:]
+        gdevs = [dev] * len(up) + list(devs) + [dev] * len(down)
+        gstreams = ([streams[0]] * len(up) + list(streams)
+                    + [streams[-1]] * len(down))
+        keep = range(len(up), len(up) + nb)
         fork_streams(devs, streams)
         band = [xs[7 * b:7 * (b + 1)] for b in range(nb)]
         ext = [_extend([u[p] for u in up] + [bd[p] for bd in band]
@@ -539,7 +535,6 @@ def _p_recon_fn(devs, streams, mb_w, hb, A, B, first=0, ghosts=([], [])):
                 if streams[b] is not None:
                     parts[b][p].record_stream(
                         torch.cuda.current_stream(devs[b]))
-            out.append(torch.cat([parts[b][p].to(devs[0])
-                                  for b in range(nb)]))
+            out.append(cat([parts[b][p] for b in range(nb)]))
         return tuple(out)
     return fn

@@ -8,8 +8,8 @@ import torch
 from ..graphs import Split
 from ..pipeline import recon_syntax, tables_for
 from ..syntax import stack_frames, syntax_tensors
-from .mesh import (fork_streams, join_streams, on_stream, run_eager,
-                   run_step, slot_groups, slot_streams, step_key)
+from .mesh import (cat, enable_peers, fork_streams, join_streams, on_stream,
+                   run_eager, run_step, slot_groups, slot_streams, step_key)
 
 
 def decode_gop_sharded(fs_list, mesh, axis: str = "gop",
@@ -30,9 +30,9 @@ def decode_gop_sharded(fs_list, mesh, axis: str = "gop",
     own, one step per key (slot devices, axis, mb_w, mb_h, F_local, the
     syntax tensors' names, and the groups when there are several;
     ``mesh.STEPS``), the counterpart of the JAX version's
-    ``jax.jit(shard_map(...))``; the groups' planes meet on the first
-    slot's device after the replays.  ``graph=False`` runs the same parts
-    op by op, counted in ``STEPS.eager``."""
+    ``jax.jit(shard_map(...))``; each group's graph copies its pictures
+    into the step's planes on the first slot's device.  ``graph=False``
+    runs the same parts op by op, counted in ``STEPS.eager``."""
     del use_pallas
     key, make, xs = step_args(fs_list, mesh, axis)
     planes = run_step(key, make, xs) if graph else run_eager(make(), xs)
@@ -42,7 +42,8 @@ def decode_gop_sharded(fs_list, mesh, axis: str = "gop",
 def step_args(fs_list, mesh, axis: str = "gop"):
     """(key, maker, inputs) of ``decode_gop_sharded``'s step: the inputs
     are each slot's syntax tensors on the host, the GOP padded with its
-    last picture; the maker's ``Split`` has one part per slot group."""
+    last picture; the maker's ``Split`` has one part per slot group, each
+    writing its pictures into the step's planes (``graphs.peer_copy``)."""
     if not fs_list:
         raise ValueError("empty GOP")
     mb_w, mb_h = fs_list[0].mb_w, fs_list[0].mb_h
@@ -59,11 +60,11 @@ def step_args(fs_list, mesh, axis: str = "gop"):
     def make():
         k = len(names)
         streams = slot_streams(devs)
+        enable_peers(devs)
         parts = [(devs[g[0]], k * len(g),
                   _gop_fn([devs[i] for i in g], [streams[i] for i in g],
                           mb_w, mb_h, names)) for g in groups]
-        return Split(parts, after=lambda outs: tuple(
-            torch.cat([o[p].to(devs[0]) for o in outs]) for p in range(3)))
+        return Split(parts)
 
     return (step_key((tuple(devs), axis, mb_w, mb_h, Fl, names), groups),
             make, xs)
@@ -72,8 +73,9 @@ def step_args(fs_list, mesh, axis: str = "gop"):
 def _gop_fn(devs, streams, mb_w, mb_h, names):
     """A part's function, captured or run op by op: fn(*each slot's
     syntax tensors in `names` order) -> (y, cb, cr) [F_local * slots, ...]
-    on devs[0], each slot's stage A and B2 on its stream of `streams`,
-    forked from the current stream and joined to it again."""
+    on its device (every slot of a group is on one), each slot's stage A
+    and B2 on its stream of `streams`, forked from the current stream and
+    joined to it again."""
     tabs = [tables_for(d) for d in devs]
     k = len(names)
 
@@ -90,6 +92,5 @@ def _gop_fn(devs, streams, mb_w, mb_h, names):
             if st is not None:
                 for t in o:
                     t.record_stream(torch.cuda.current_stream(dev))
-        return tuple(torch.cat([o[p].to(devs[0]) for o in outs])
-                     for p in range(3))
+        return tuple(cat([o[p] for o in outs]) for p in range(3))
     return fn

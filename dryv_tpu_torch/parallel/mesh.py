@@ -16,11 +16,14 @@ and halo copies, captured per static key and replayed (``graphs.Step``).
 A graph captures one device's work, so a path cuts a mesh axis's slots
 into groups (``slot_groups``: runs of consecutive slots on one device)
 and its step into one part per group (``graphs.Split``), each captured
-as a graph of its own on its device; the copies between groups go card
-to card (``peer_copy``), inside the sending group's graph or between the
-replays.  One device gives one group and one graph.  ``graph=False``
-runs the same parts op by op (``run_eager``), counted in
-``STEPS.eager``.
+as a graph of its own on its device.  Every copy between groups runs
+inside a group's graph, card to card (``graphs.peer_copy``): a halo
+pushed by the sending group, a ghost band pulled by the receiving one, a
+group's planes into the step's planes on the first card; a call enqueues
+the replays, one a card in part order, and the event waits that order
+them.  One device
+gives one group and one graph.  ``graph=False`` runs the same parts op by
+op (``run_eager``), counted in ``STEPS.eager``.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..graphs import Split, StepCache
+from ..graphs import StepCache
 
 
 class Mesh:
@@ -128,34 +131,10 @@ def enable_peers(devices) -> None:
                 _PEERS.add((a, b))
 
 
-def peer_copy(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """dst[...] = src, card to card on the current stream of src's card
-    (raw ``cudaMemcpyAsync``, C entry ``dt_peer_copy``: it waits for no
-    stream of dst's card, so a capture on src's card can hold it; the
-    caller orders dst's readers by an event); on the CPU a plain copy."""
-    if src.device.type != "cuda":
-        dst.copy_(src)
-        return
-    if dst.dtype != src.dtype or dst.shape != src.shape:
-        raise ValueError(f"peer_copy: {tuple(src.shape)} {src.dtype} into "
-                         f"{tuple(dst.shape)} {dst.dtype}")
-    if not (src.is_contiguous() and dst.is_contiguous()):
-        raise ValueError("peer_copy: tensors must be contiguous")
-    _build.call("dt_peer_copy", src, dst, src.numel() * src.element_size())
-
-
-def order_after(src_devices, dst_devices) -> None:
-    """The current stream of each of `dst_devices` waits for the work
-    already enqueued on the current stream of each of `src_devices`
-    (CUDA; nothing on the CPU)."""
-    for s in src_devices:
-        if s.type != "cuda":
-            continue
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(s))
-        for d in dst_devices:
-            if d != s:
-                torch.cuda.current_stream(d).wait_event(ev)
+def cat(ts, dim=0):
+    """``torch.cat`` of a group's slot tensors `ts`, or the one tensor
+    itself."""
+    return ts[0] if len(ts) == 1 else torch.cat(ts, dim)
 
 
 _LOCAL = threading.local()    # .streams: (device, slot index) -> stream

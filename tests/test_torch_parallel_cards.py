@@ -3,14 +3,16 @@ into groups, each a part of the step with its own static inputs (on CUDA
 a graph of its own per card), through the private seam
 ``parallel.mesh._slot_group``, which the tests set so that every `size`
 neighbouring slots of one CPU device form a group, as the slots of one
-card do on a mesh of several.  The halos between groups go through the
-receiving group's static buffers (``peer_copy``), banded P recon's
-aprons through ghost bands copied before the parts run, and the groups'
-planes meet on the first slot's device after them.  Each path's
-per-group route equals its one-group route, ``graph=False``, the JAX
-function (8 virtual CPU devices, Pallas in interpret mode) and the
-golden, or for P recon B4's plain version on the whole plane, with
-tolerance 0 (the paths are integer)."""
+card do on a mesh of several.  Every exchange runs inside the parts: the
+halos between groups go through the receiving group's static buffers
+(``peer_copy``), banded P recon's groups pull their ghost bands from the
+other groups' static inputs, and each group writes its planes into the
+step's planes on the first slot's device; a call copies nothing between
+devices outside them.  Each path's per-group route equals its one-group
+route, ``graph=False``, the JAX function (8 virtual CPU devices, Pallas
+in interpret mode) and the golden, or for P recon B4's plain version on
+the whole plane, with tolerance 0 (the paths are integer)."""
+import collections
 import contextlib
 import threading
 from functools import lru_cache
@@ -19,8 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from dryv_tpu_torch import graphs
 from dryv_tpu_torch import parallel as tpar
 from dryv_tpu_torch.native.full import decode_annexb_native
+from dryv_tpu_torch.parallel import bands as tbands
 from dryv_tpu_torch.parallel import mesh as tmesh
 from dryv_tpu_torch.pipeline import frames_from_stream
 
@@ -137,9 +141,9 @@ def test_banded_frame_per_group(steps, monkeypatch, axes, size):
 
 @pytest.mark.parametrize("n_bands,size", [(2, 1), (4, 2), (4, 1)])
 def test_banded_p_recon_per_group(steps, monkeypatch, n_bands, size):
-    """Groups take the bands their 64-row aprons reach as ghost bands
-    copied before the parts: with 4 bands of 32 rows, two on each side,
-    so a group of one band reads a band two groups away."""
+    """Groups pull the bands their 64-row aprons reach as ghost bands
+    inside their parts: with 4 bands of 32 rows, two on each side, so a
+    group of one band reads a band two groups away."""
     from dryv_tpu.parallel import make_mesh
     from dryv_tpu.parallel.bands import make_banded_p_recon_fn
 
@@ -155,7 +159,10 @@ def test_banded_p_recon_per_group(steps, monkeypatch, n_bands, size):
     _assert_planes(got, one, eager, ref, _unbanded_p(*pic, mb_w, mb_h))
     step = _split_step(steps)
     assert len(step.split.parts) == n_bands // size
-    assert step.split.before is not None and len(step.inputs) == 7 * n_bands
+    assert len(step.inputs) == 7 * n_bands
+    m = -(-64 // (16 * (mb_h // n_bands)))   # ghost bands a side
+    assert step.split.reads[0] == tuple(7 * b + p for b in range(
+        size, min(n_bands, size + m)) for p in range(3))
 
 
 def test_2d_mesh_per_group(steps, monkeypatch):
@@ -223,18 +230,35 @@ def test_one_key_several_groups_one_step_one_hold(steps, monkeypatch):
 
 @pytest.mark.parametrize("path,slots,size,Fi", [
     ("gop", 2, 1, 0), ("gop", 4, 1, 0), ("band", 2, 1, 2),
-    ("band", 4, 1, 1), ("band", 4, 2, 1)])
+    ("band", 4, 1, 1), ("band", 4, 2, 1), ("p_recon", 4, 1, 0),
+    ("p_recon", 4, 2, 0)])
 def test_distinct_pictures_in_order_per_group(steps, monkeypatch, path,
                                               slots, size, Fi):
     """Five distinct pictures through each path's per-group route, graphed
     and eager, each frame held against the native decode of its own
     picture: a part that mixed up pictures, slots, frame groups or the
-    halo buffers of frame groups would show here."""
+    halo buffers of frame groups would show here.  Banded P recon runs
+    two distinct P pictures back to back through one step, A B A, every
+    result held until the last call, each against B4's plain version on
+    its whole plane: a ghost band pulled from the other picture's
+    reference would show here."""
+    _cut(monkeypatch, size)
+    mesh = tpar.make_mesh({"gop" if path == "gop" else "band": slots}, CPU8)
+    if path == "p_recon":
+        pics = [_p_picture(6, 8, seed) for seed in (5, 6)]
+        want = [_unbanded_p(*pic, 6, 8) for pic in pics]
+        for g in (True, False):
+            run = tpar.make_banded_p_recon_fn(mesh, 6, 8, apron=64, graph=g)
+            got = [run(*pics[i], device_out=True) for i in (0, 1, 0)]
+            for planes, i in zip(got, (0, 1, 0)):
+                _assert_planes([p.numpy() for p in planes], want[i])
+        assert not np.array_equal(want[0][0], want[1][0])
+        step = _split_step(steps)
+        assert len(step.split.parts) == slots // size and step.replays == 3
+        return
     stream = tpar._tiny_stream(5)
     frames, _ = frames_from_stream(stream)
     want = decode_annexb_native(stream)
-    _cut(monkeypatch, size)
-    mesh = tpar.make_mesh({path: slots}, CPU8)
     if path == "gop":
         outs = [tpar.decode_gop_sharded(frames, mesh, graph=g)
                 for g in (True, False)]
@@ -248,6 +272,77 @@ def test_distinct_pictures_in_order_per_group(steps, monkeypatch, path,
             _assert_planes([p[i] for p in planes], (w.y, w.cb, w.cr))
     assert len({w.y.tobytes() for w in want}) == len(want)
     assert len(_split_step(steps).split.parts) == slots // size
+
+
+@pytest.mark.parametrize("path,axes,size", [
+    ("gop", {"gop": 4}, 1), ("gop", {"gop": 4}, 2),
+    ("band", {"band": 4}, 1), ("band", {"band": 3}, 2),
+    ("frame", {"band": 4}, 1), ("frame", {"gop": 2, "band": 2}, 1),
+    ("p_recon", {"band": 4}, 1), ("p_recon", {"band": 4}, 2)])
+def test_no_exchange_outside_the_parts(steps, monkeypatch, path, axes,
+                                       size):
+    """With the slots cut in groups, a call of each path's step moves
+    data between groups only inside the parts' functions and their copy
+    into the step's planes (``Split.run``, ``Split.put``): outside them
+    ``Step.__call__`` makes no ``peer_copy`` and no ``torch.cat``, the
+    split has no ``before`` or ``after``, the step's planes stay one
+    allocation across calls, and every result is a copy of them."""
+    fs, golden = _fixture("mix_qp26")
+    pic = _p_picture(6, 8, 3)
+    depth = collections.Counter()      # "part", "call": calls open now
+    seen = collections.Counter()       # (where, what) -> count
+
+    def within(key, fn):
+        def wrapper(*a, **k):
+            depth[key] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[key] -= 1
+        return wrapper
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            if depth["part"]:
+                seen["inside", name] += 1
+            elif depth["call"]:
+                seen["outside", name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    peer = counted("peer_copy", graphs.peer_copy)
+    for mod in (graphs, tbands):
+        monkeypatch.setattr(mod, "peer_copy", peer)
+    monkeypatch.setattr(torch, "cat", counted("cat", torch.cat))
+    for name in ("run", "put"):
+        monkeypatch.setattr(graphs.Split, name,
+                            within("part", getattr(graphs.Split, name)))
+    monkeypatch.setattr(graphs.Step, "__call__",
+                        within("call", graphs.Step.__call__))
+    _cut(monkeypatch, size)
+    mesh = tpar.make_mesh(axes, CPU8)
+    calls = {
+        "gop": lambda: tpar.decode_gop_sharded([fs] * 4, mesh),
+        "band": lambda: tpar.make_banded_gop_fn(mesh, fs.mb_w, fs.mb_h, 2,
+                                                Fi=1)([fs] * 2),
+        "frame": lambda: tpar.make_banded_frame_fn(mesh, fs.mb_w,
+                                                   fs.mb_h)(fs),
+        "p_recon": lambda: tpar.make_banded_p_recon_fn(mesh, 6, 8,
+                                                       apron=64)(*pic)}
+    ptrs = []
+    for _ in range(2):
+        got = calls[path]()
+        _assert_planes(got, _unbanded_p(*pic, 6, 8) if path == "p_recon"
+                       else golden)
+        step = _split_step(steps)
+        ptrs.append([t.data_ptr() for t in step.outputs])
+    assert not [k for k in seen if k[0] == "outside"], dict(seen)
+    assert seen["inside", "peer_copy"] > 0 and ptrs[0] == ptrs[1]
+    assert getattr(step.split, "before", None) is None
+    assert getattr(step.split, "after", None) is None
+    assert len(step.split.parts) == len(tmesh.slot_groups(
+        mesh.axis_devices("gop" if path == "gop" else "band"))) > 1
+    assert step.replays == 2 and steps.stats()["eager"] == 0
 
 
 def test_eager_counts_only_graph_false(steps, monkeypatch):
@@ -287,3 +382,28 @@ def test_slot_groups_follow_devices():
     assert tmesh.step_key(("k",), [range(0, 3)]) == ("k",)
     assert tmesh.step_key(("k",), [range(0, 1), range(1, 3)]) == (
         "k", ((0, 1), (1, 3)))
+
+
+@pytest.mark.parametrize("layout,reads", [
+    ("alternating", [(1,), (), (), (2,)]),
+    ("runs", [(2,), (), (), (1,)])])
+def test_replay_order_and_host_waits(layout, reads):
+    """A step over several devices replays its parts in their order, and
+    the first device's stream waits on the host for the parts on the
+    other devices (``others``) before the results' copy, wherever they
+    lie in the order.  A part that reads another device's inputs makes
+    that device's loads wait for it, and it for them."""
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    like = [torch.zeros(2)] * 4
+    devs = {"alternating": [cpu, meta, cpu, meta],
+            "runs": [cpu, cpu, meta, meta]}[layout]
+
+    def fn(*xs):
+        return xs[:1]
+
+    split = graphs.Split([(d, 1, fn) for d in devs], reads=reads)
+    step = graphs.Step("k", split, like)
+    assert step.devices == [cpu, meta]
+    assert step.others == [i for i, d in enumerate(devs) if d == meta]
+    assert step.reads == [{meta}, set(), set(), {cpu}]
+    assert step.readers == {meta: [0], cpu: [3]}
