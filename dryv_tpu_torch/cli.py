@@ -4,11 +4,20 @@ as planar YUV (``TorchVideo.write_yuv``).
 
 Usage: python -m dryv_tpu_torch <file.mp4> [-d] [-o OUT] [--frames N]
        [--backend torch|jax|device-ipb|native|scalar] [-s SEEK]
-       [--stats] [--device cuda|cpu] [--all-frames]
+       [--stats] [--trace DIR] [--device cuda|cpu] [--all-frames]
+
+--stats prints the decode's host stages (seconds and calls), its
+counters (frames, CABAC bins, wire bytes, staging retries) and bins/s as
+JSON.  --trace DIR records the decode under torch.profiler (host ops,
+and the card's kernels and copies where CUDA is present) and writes
+DIR/trace.json, a Chrome trace; it takes the stage timers as --stats
+does, so the trace also holds each stage as a range ``dryv.<stage>``
+on the same clock as the card's activity.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -40,7 +49,11 @@ def parser() -> argparse.ArgumentParser:
                     help="seek position: Ns | Nms | N%% | Nts (parsed, "
                          "not applied, as in the JAX CLI)")
     ap.add_argument("--stats", action="store_true",
-                    help="print per-stage timing as JSON after decoding")
+                    help="print per-stage timing and the decode's counters "
+                         "as JSON after decoding")
+    ap.add_argument("--trace", metavar="DIR", default=None,
+                    help="write a torch.profiler trace of the decode, with "
+                         "its dryv.<stage> ranges, to DIR/trace.json")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a GPU) or cpu")
     ap.add_argument("--all-frames", action="store_true",
@@ -58,7 +71,7 @@ def main(argv=None):
         from .utils.obs import enable_debug_log
         enable_debug_log("debug.log")
 
-    from .utils.obs import StageTimers, logger
+    from .utils.obs import StageTimers, logger, trace_device
 
     t0 = time.time()
     v = TorchVideo.open(args.filepath)
@@ -66,17 +79,21 @@ def main(argv=None):
     logger("cli").debug("%s: %s", args.filepath, info)
     for k, val in info.items():
         print(f"{k}: {val}")
-    tm = StageTimers() if args.stats else None
+    tm = StageTimers() if args.stats or args.trace else None
     backend = "torch" if args.backend == "jax" else args.backend
-    frames = v.decode_frames(max_frames=args.frames, device=args.device,
-                             timers=tm, backend=backend)
+    with (trace_device(args.trace) if args.trace
+          else contextlib.nullcontext()):
+        frames = v.decode_frames(max_frames=args.frames, device=args.device,
+                                 timers=tm, backend=backend)
     if frames:
         os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
         out = frames if args.all_frames else frames[:1]
         v.write_yuv(args.output, *out)
         print(f"wrote {len(out)} frame(s) to {args.output} "
               f"({frames[0].y.shape[1]}x{frames[0].y.shape[0]})")
-    if tm is not None:
+    if args.stats:
         print("stats:", json.dumps(tm.report()))
+    if args.trace:
+        print(f"trace: {os.path.join(args.trace, 'trace.json')}")
     print(f"Done in {time.time() - t0:.3f}s")
     return 0

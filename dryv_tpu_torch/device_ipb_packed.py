@@ -47,6 +47,7 @@ from .kernels.inter import mc_frame
 from .kernels.transform import luma_residual_raster, stage_a
 from .kernels.wavefront import intra_recon, recon_inputs
 from .tables import decoder_tables
+from .utils.obs import StageTimers, staged
 
 _IPB_SPEC = (("bmp", np.uint8, "npad,51"),
              ("vals", np.int8, "npad,W"),
@@ -231,9 +232,14 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
     FMO, constrained intra, CAVLC, SP/SI, scaling matrices) or a PCM MB
     decodes whole on the native C++ decoder (``native.full``), counted in
     ``decode_annexb_device_packed.host_calls``.  `timers` (a
-    ``utils.obs.StageTimers``) accumulates the host stages: parse,
-    entropy, motion (derivation and WP tables), pack, ship, dispatch
-    (enqueueing ``PackedPictureDecoder``) and harvest.  With `graph`
+    ``utils.obs.StageTimers``, or anything with its ``stage`` and
+    ``count``) takes the call's host work in stages, none inside
+    another: split, parse, entropy, motion (derivation and WP tables),
+    alloc (the pinned blobs), wait (on a slot's copy, and the last
+    drain), pack, hold, ship, dispatch (enqueueing
+    ``PackedPictureDecoder``), dpb, harvest and fallback
+    (``utils.obs.STAGES``); and the counters frames, bins, wire_bytes
+    and retries (``utils.obs.COUNTERS``).  With `graph`
     (the default) each picture replays its key's captured step
     (``STEPS``): ship copies the blob and the reference planes into the
     step's static inputs, dispatch replays it and clones its planes;
@@ -241,41 +247,49 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
     is the same bytes either way.  Decodes in several threads or on
     several CUDA streams take turns at the shared steps, one picture's
     copies, replay and clones at a time (``StepCache.hold``)."""
-    from .avc import split_annexb
-    from .avc.dpb import DecodedPictureBuffer
-    from .avc.slice_header import SliceHeader, SliceType
-    from .decoder import DecodedFrame, SyntaxDecoder, group_access_units
-    from .native.entropy import _ptr, decode_picture_slices, lib, pack_frame
-    from .native.full import (_build_inter_params, _u8p,
-                              decode_annexb_native, wp_tables)
-    from .pipeline import _dbctl_of
-    from .utils.obs import StageTimers
+
+    tm = timers if timers is not None else StageTimers()
+    with tm.stage("split"):
+        from .avc import split_annexb
+        from .avc.dpb import DecodedPictureBuffer
+        from .avc.slice_header import SliceHeader, SliceType
+        from .decoder import DecodedFrame, SyntaxDecoder, group_access_units
+        from .native.entropy import (_ptr, decode_picture_slices, lib,
+                                     pack_frame)
+        from .native.full import (_build_inter_params, _u8p,
+                                  decode_annexb_native, wp_tables)
+        from .pipeline import _dbctl_of
+
+        dev = resolve_device(device)
+        cuda = dev.type == "cuda"
+        sd = SyntaxDecoder()
+        rest = sd.feed_parameter_sets(list(split_annexb(stream)))
+        access_units = group_access_units(rest)
+        dpb = DecodedPictureBuffer()
+        stored: dict = {}     # frame_idx -> _Meta (motion field)
+        planes: dict = {}     # frame_idx -> (y, cb, cr) on the device
+        frames = []
+        order = []
+        epoch = -1
+        W, ecap, ovcap = 32, 1024, 256
+        bufs = None           # two pinned blobs, made at the first picture
+        slot_ev = [None, None]
+        model = None
+        npad = n = n4 = 0
+        cur = 0
 
     def to_host():
         drain()
         decode_annexb_device_packed.host_calls += 1
-        return decode_annexb_native(stream, max_frames, n_threads=n_threads)
+        with tm.stage("fallback"):
+            return decode_annexb_native(stream, max_frames,
+                                        n_threads=n_threads)
 
     def drain():
-        for ev in slot_ev:
-            if ev is not None:
-                ev.synchronize()
-
-    dev = resolve_device(device)
-    cuda = dev.type == "cuda"
-    tm = timers if timers is not None else StageTimers()
-    sd = SyntaxDecoder()
-    rest = sd.feed_parameter_sets(list(split_annexb(stream)))
-    dpb = DecodedPictureBuffer()
-    stored: dict = {}     # frame_idx -> _Meta (motion field)
-    planes: dict = {}     # frame_idx -> (y, cb, cr) on the device
-    frames = []
-    order = []
-    epoch = -1
-    W, ecap, ovcap = 32, 1024, 256
-    bufs = None           # two pinned blobs, made at the first picture
-    slot_ev = [None, None]
-    model = None
+        with tm.stage("wait"):
+            for ev in slot_ev:
+                if ev is not None:
+                    ev.synchronize()
 
     def get_model():
         nonlocal model
@@ -283,10 +297,25 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
             model = PackedPictureDecoder(mb_w, mb_h, dev)
         return model
 
-    npad = n = n4 = 0
-    cur = 0
+    def pack(v):
+        """The picture's wire into the blob views `v`: None, or the caps
+        (W, ecap, ovcap) it needs, larger than the blob's."""
+        v["exc_idx"][:] = 0
+        v["exc_delta"][:] = 0
+        v["ovf_idx"][:] = npad
+        maxnz, nexc, novf = pack_frame(
+            out, n, W, ctl, v["bmp"], v["vals"], np.zeros(npad, np.int32),
+            v["u8"], v["exc_idx"], v["exc_delta"], v["ovf_idx"],
+            v["ovf_rows"], n_threads=n_threads, inter=True)
+        assert maxnz >= 0   # PCM handled above
+        dense = maxnz > W and W < 256 and novf * 816 > npad * 32
+        if nexc <= ecap and novf <= ovcap and not dense:
+            return None
+        return (min(max(32, (maxnz + 31) & ~31), 256) if dense else W,
+                max(1024, (nexc + 1023) & ~1023) if nexc > ecap else ecap,
+                max(256, (novf + 255) & ~255) if novf > ovcap else ovcap)
 
-    for pic_nals in group_access_units(rest):
+    for pic_nals in access_units:
         with tm.stage("parse"):
             headers = []
             slice_datas = []
@@ -300,41 +329,46 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                 sps = sd.sps_map[pps.seq_parameter_set_id]
                 h = SliceHeader.parse(rbsp, nal, sps, pps)
                 if _out_of_scope(sps, pps, h):
-                    return to_host()
+                    headers = None
+                    break
                 headers.append(h)
                 slice_datas.append((rbsp, (h.header_bit_len + 7) & ~7,
                                     h.first_mb_in_slice, h.slice_qp_y(pps),
                                     int(h.slice_type), h.cabac_init_idc,
                                     h.num_ref_idx_l0_active_minus1,
                                     h.num_ref_idx_l1_active_minus1))
-            h0 = headers[0]
-            nal0 = pic_nals[0]
-            if int(nal0.type) == 5:
-                epoch += 1
-            poc = dpb.decode_poc(sps, h0, nal0)
-            dpb.build_ref_lists(sps, h0, poc)
+            if headers is not None:
+                h0 = headers[0]
+                nal0 = pic_nals[0]
+                if int(nal0.type) == 5:
+                    epoch += 1
+                poc = dpb.decode_poc(sps, h0, nal0)
+                dpb.build_ref_lists(sps, h0, poc)
+                mb_w, mb_h = sps.pic_width_in_mbs, sps.frame_height_in_mbs
+                if not n:
+                    n = mb_w * mb_h
+                    n4 = n * 16
+                    npad = round_up(n, BLK)
+        if headers is None:
+            return to_host()
         with tm.stage("entropy"):
             out = decode_picture_slices(slice_datas, sps, pps,
                                         n_threads=n_threads, reuse=True)
-        tm.count("frames", 1)
-        mb_w, mb_h = sps.pic_width_in_mbs, sps.frame_height_in_mbs
-        if bufs is None:
-            n = mb_w * mb_h
-            n4 = n * 16
-            npad = round_up(n, BLK)
-            bufs = [_alloc(npad, n, n4, W, ecap, ovcap, pin=cuda)
-                    for _ in range(2)]
-        if bool((out["kind"][:n] == 3).any()):     # PCM -> native restart
+            tm.count("frames", 1)
+            tm.count("bins", int(out["bin_count"].sum()))
+            pcm = bool((out["kind"][:n] == 3).any())
+        if pcm:                                     # PCM -> native restart
             return to_host()
-        is_inter_pic = bool((out["kind"][:n] >= 4).any()
-                            and not (out["kind"][:n] == 11).all())
-        deblocked = any(h.deblocking is None or h.deblocking.disable_idc != 1
-                        for h in headers)
-        off1 = pps.second_chroma_qp_index_offset
-        if off1 is None:
-            off1 = pps.chroma_qp_index_offset
 
         with tm.stage("motion"):
+            is_inter_pic = bool((out["kind"][:n] >= 4).any()
+                                and not (out["kind"][:n] == 11).all())
+            deblocked = any(h.deblocking is None
+                            or h.deblocking.disable_idc != 1
+                            for h in headers)
+            off1 = pps.second_chroma_qp_index_offset
+            if off1 is None:
+                off1 = pps.chroma_qp_index_offset
             exp = {k: np.zeros(n4 * 2, np.int32) for k in ("mv0", "mv1")}
             for k in ("ri0", "ri1", "rk0", "rk1"):
                 exp[k] = np.full(n4, -1, np.int32)
@@ -366,37 +400,31 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                                    {p.frame_idx for p in l1})
                 wp_mode, expl, dy, dc, imp = wp_tables(h0, pps, poc, l0, l1)
 
+        if bufs is None:
+            with tm.stage("alloc"):
+                bufs = [_alloc(npad, n, n4, W, ecap, ovcap, pin=cuda)
+                        for _ in range(2)]
         # ---- fill the wire blob: a slot is refilled only after the
         # device copy that read it two pictures ago has completed
-        with tm.stage("ship"):
-            if slot_ev[cur] is not None:
+        if slot_ev[cur] is not None:
+            with tm.stage("wait"):
                 slot_ev[cur].synchronize()
         with tm.stage("pack"):
             blob, v = bufs[cur]
             ctl = _dbctl_of(headers)
-            while True:
-                v["exc_idx"][:] = 0
-                v["exc_delta"][:] = 0
-                v["ovf_idx"][:] = npad
-                maxnz, nexc, novf = pack_frame(
-                    out, n, W, ctl, v["bmp"], v["vals"],
-                    np.zeros(npad, np.int32), v["u8"], v["exc_idx"],
-                    v["exc_delta"], v["ovf_idx"], v["ovf_rows"],
-                    n_threads=n_threads, inter=True)
-                assert maxnz >= 0   # PCM handled above
-                dense = maxnz > W and W < 256 and novf * 816 > npad * 32
-                if nexc <= ecap and novf <= ovcap and not dense:
-                    break
-                if dense:
-                    W = min(max(32, (maxnz + 31) & ~31), 256)
-                if nexc > ecap:
-                    ecap = max(1024, (nexc + 1023) & ~1023)
-                if novf > ovcap:
-                    ovcap = max(256, (novf + 255) & ~255)
-                drain()
+            caps = pack(v)
+        retried = caps is not None
+        while caps is not None:
+            W, ecap, ovcap = caps
+            drain()
+            with tm.stage("alloc"):
                 bufs = [_alloc(npad, n, n4, W, ecap, ovcap, pin=cuda)
                         for _ in range(2)]
+            with tm.stage("pack"):
                 blob, v = bufs[cur]
+                caps = pack(v)
+        with tm.stage("pack"):
+            tm.count("retries", int(retried))
             if is_inter_pic:
                 v["mv"][:, 0] = exp["mv0"].reshape(n4, 2)
                 v["mv"][:, 1] = exp["mv1"].reshape(n4, 2)
@@ -427,21 +455,23 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                 v["wp_imp"][:] = 0
                 v["misc"][:] = 0
                 wp_mode = 0
+            nlists = (0 if not is_inter_pic else
+                      2 if any(h.slice_type == SliceType.B for h in headers)
+                      else 1)
+            c0 = pps.chroma_qp_index_offset
+            host = torch.from_numpy(blob)
+            refs = [[planes[k][p] for k in used_keys] for p in range(3)] \
+                if used_keys else []
+            key = (dev, mb_w, mb_h, deblocked, wp_mode, c0, off1, W, ecap,
+                   ovcap, nlists, len(used_keys))
 
-        nlists = (0 if not is_inter_pic else
-                  2 if any(h.slice_type == SliceType.B for h in headers)
-                  else 1)
-        c0 = pps.chroma_qp_index_offset
-        host = torch.from_numpy(blob)
-        refs = [[planes[k][p] for k in used_keys] for p in range(3)] \
-            if used_keys else []
-        key = (dev, mb_w, mb_h, deblocked, wp_mode, c0, off1, W, ecap,
-               ovcap, nlists, len(used_keys))
-        with (STEPS.hold(key, lambda: _picture_fn(
-                get_model(), W, ecap, ovcap, nlists, wp_mode, deblocked, c0,
-                off1), [host, *refs], dev) if graph
-              else contextlib.nullcontext()) as step:
+        with staged(tm, "hold", lambda: STEPS.hold(
+                key, lambda: _picture_fn(
+                    get_model(), W, ecap, ovcap, nlists, wp_mode, deblocked,
+                    c0, off1), [host, *refs], dev) if graph
+                else contextlib.nullcontext()) as step:
             with tm.stage("ship"):
+                tm.count("wire_bytes", blob.nbytes)
                 if graph:
                     step.load(host, *refs)
                 else:
@@ -458,34 +488,37 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                                             nlists, wp_mode, deblocked, c0,
                                             off1)
 
-        pic = dpb.mark_and_store(sps, h0, nal0, poc)
-        if pic is not None:
-            planes[pic.frame_idx] = (y, cb, cr)
-            m = _Meta()
-            m.mv0, m.mv1 = exp["mv0"].copy(), exp["mv1"].copy()
-            m.ri0, m.ri1 = exp["ri0"].copy(), exp["ri1"].copy()
-            m.rk0, m.rk1 = exp["rk0"].copy(), exp["rk1"].copy()
-            m.list0_keys = [p.frame_idx for p in dpb.ref_list0]
-            stored[pic.frame_idx] = m
-            live = {p.frame_idx for p in dpb.pictures}
-            stored = {k: x for k, x in stored.items() if k in live}
-            planes = {k: x for k, x in planes.items() if k in live}
-
-        frames.append((y, cb, cr, poc, sps))
-        order.append((epoch, poc))
-        cur ^= 1
+        with tm.stage("dpb"):
+            pic = dpb.mark_and_store(sps, h0, nal0, poc)
+            if pic is not None:
+                planes[pic.frame_idx] = (y, cb, cr)
+                m = _Meta()
+                m.mv0, m.mv1 = exp["mv0"].copy(), exp["mv1"].copy()
+                m.ri0, m.ri1 = exp["ri0"].copy(), exp["ri1"].copy()
+                m.rk0, m.rk1 = exp["rk0"].copy(), exp["rk1"].copy()
+                m.list0_keys = [p.frame_idx for p in dpb.ref_list0]
+                stored[pic.frame_idx] = m
+                live = {p.frame_idx for p in dpb.pictures}
+                stored = {k: x for k, x in stored.items() if k in live}
+                planes = {k: x for k, x in planes.items() if k in live}
+            frames.append((y, cb, cr, poc, sps))
+            order.append((epoch, poc))
+            cur ^= 1
         if max_frames and len(frames) >= max_frames + 16:
             break
-    frames = [f for _, f in sorted(zip(order, frames), key=lambda t: t[0])]
-    if max_frames:
-        frames = frames[:max_frames]
+    with tm.stage("dpb"):
+        frames = [f for _, f in sorted(zip(order, frames),
+                                       key=lambda t: t[0])]
+        if max_frames:
+            frames = frames[:max_frames]
     if device_out or not frames:
         drain()
         return frames
     with tm.stage("harvest"):
         ys, cbs, crs = (torch.stack([f[p] for f in frames]).cpu().numpy()
                         for p in range(3))
-        drain()
+    drain()
+    with tm.stage("harvest"):
         return [DecodedFrame(ys[i], cbs[i], crs[i], f[3]).crop(f[4])
                 for i, f in enumerate(frames)]
 

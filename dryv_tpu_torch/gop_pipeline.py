@@ -40,6 +40,7 @@ from .kernels.transform import stage_a
 from .kernels.wavefront import intra_recon, recon_inputs
 from .pipeline import _dbctl_of, decode_annexb_fast
 from .tables import chroma_qp, decoder_tables
+from .utils.obs import StageTimers, staged
 
 I16_STRIDE = 408    # luma_lv 256 | luma_dc 16 | chroma_dc 8 | chroma_ac 128
 U8_STRIDE = 19      # kind qp_y i16_mode chroma_mode | modes4 8 (nibbles)
@@ -165,33 +166,36 @@ class BlobStaging:
             if ev is not None:
                 ev.synchronize()
 
-    def _grow(self, caps):
+    def _grow(self, caps, tm):
         """New blobs at `caps`, holding what the old ones held."""
-        self.drain()
-        W, ecap, ovcap = self.caps
-        self.caps = caps
-        for k, old in enumerate(self.bufs):
-            nv = self._alloc()
-            nv["bmp"][:] = old["bmp"]
-            nv["vals"][:, :, :W] = old["vals"]
-            nv["exc_idx"][:, :ecap] = old["exc_idx"]
-            nv["exc_delta"][:, :ecap] = old["exc_delta"]
-            nv["ovf_idx"][:, :ovcap] = old["ovf_idx"]
-            nv["ovf_rows"][:, :ovcap] = old["ovf_rows"]
-            nv["u8"][:] = old["u8"]
-            nv["cnt"] = old["cnt"]
-            self.bufs[k] = nv
+        with tm.stage("wait"):
+            self.drain()
+        with tm.stage("alloc"):
+            W, ecap, ovcap = self.caps
+            self.caps = caps
+            for k, old in enumerate(self.bufs):
+                nv = self._alloc()
+                nv["bmp"][:] = old["bmp"]
+                nv["vals"][:, :, :W] = old["vals"]
+                nv["exc_idx"][:, :ecap] = old["exc_idx"]
+                nv["exc_delta"][:, :ecap] = old["exc_delta"]
+                nv["ovf_idx"][:, :ovcap] = old["ovf_idx"]
+                nv["ovf_rows"][:, :ovcap] = old["ovf_rows"]
+                nv["u8"][:] = old["u8"]
+                nv["cnt"] = old["cnt"]
+                self.bufs[k] = nv
 
     def pack(self, k, batch, sps, pps, n_threads, tm):
         """Entropy-decode and pack a batch of (slice_datas, headers) into
         slot k, growing the caps as its pictures need, and pad the tail
         by replicating the last picture.  Returns the blob as a uint8
         tensor, or None at the first picture holding PCM MBs, which the
-        wire does not carry."""
-        from .native.entropy import decode_pack_picture_islices
-
+        wire does not carry.  `tm` takes the work in the stages wait,
+        prep, entropy (the fused entropy and pack), redecode (a picture
+        decoded again after a cap growth), alloc and pad, and counts
+        frames, bins and retries."""
         if self.ev[k] is not None:
-            with tm.stage("ship"):
+            with tm.stage("wait"):
                 self.ev[k].synchronize()
         npad = self.npad
         b = self.bufs[k]
@@ -200,46 +204,56 @@ class BlobStaging:
                 ctl = _dbctl_of(headers)
             stage = "entropy"
             while True:
-                b["exc_idx"][i] = 0
-                b["exc_delta"][i] = 0
-                b["ovf_idx"][i] = npad
-                W, ecap, ovcap = self.caps
                 # fused: slice workers pack their MB ranges cache-hot
                 with tm.stage(stage):
+                    from .native.entropy import decode_pack_picture_islices
+
+                    b["exc_idx"][i] = 0
+                    b["exc_delta"][i] = 0
+                    b["ovf_idx"][i] = npad
+                    W, ecap, ovcap = self.caps
                     out, maxnz, nexc, novf = decode_pack_picture_islices(
                         slice_datas, sps, pps, W, ctl, b["bmp"][i],
                         b["vals"][i], b["cnt"][i], b["u8"][i],
                         b["exc_idx"][i], b["exc_delta"][i],
                         b["ovf_idx"][i], b["ovf_rows"][i],
                         n_threads=n_threads, reuse=True)
-                if stage == "entropy":
-                    tm.count("frames", 1)
-                    tm.count("bins", int(out["bin_count"].sum()))
+                    if stage == "entropy":
+                        tm.count("frames", 1)
+                        tm.count("bins", int(out["bin_count"].sum()))
+                    # rare growth retries (sticky caps, typically once
+                    # per stream on the first picture) re-decode the
+                    # picture
+                    if maxnz < 0:
+                        caps = None
+                    elif maxnz > W and W < 256 and novf * 816 > npad * 32:
+                        # dense stream: grow the sticky stride to the
+                        # true per-MB max instead of shipping 816-byte
+                        # overflow rows; earlier slots of this batch stay
+                        # valid
+                        caps = (min(_round_cap(maxnz, 32), 256), ecap, ovcap)
+                    elif nexc > ecap:
+                        caps = (W, _round_cap(nexc, 256), ovcap)
+                    elif novf > ovcap:
+                        caps = (W, ecap, _round_cap(novf, 64))
+                    else:
+                        caps = None
+                    if caps is not None and stage == "entropy":
+                        tm.count("retries", 1)
                 if maxnz < 0:
                     return None
-                # rare growth retries (sticky caps, typically once per
-                # stream on the first picture) re-decode the picture
-                if maxnz > W and W < 256 and novf * 816 > npad * 32:
-                    # dense stream: grow the sticky stride to the true
-                    # per-MB max instead of shipping 816-byte overflow
-                    # rows; earlier slots of this batch stay valid
-                    self._grow((min(_round_cap(maxnz, 32), 256), ecap,
-                                ovcap))
-                elif nexc > ecap:
-                    self._grow((W, _round_cap(nexc, 256), ovcap))
-                elif novf > ovcap:
-                    self._grow((W, ecap, _round_cap(novf, 64)))
-                else:
+                if caps is None:
                     break
+                self._grow(caps, tm)
                 b = self.bufs[k]
-                stage = "pack"
+                stage = "redecode"
         with tm.stage("pad"):
             last = len(batch) - 1
             for i in range(len(batch), self.F):
                 for key in ("bmp", "cnt", "u8", "vals", "exc_idx",
                             "exc_delta", "ovf_idx", "ovf_rows"):
                     b[key][i] = b[key][last]
-        return torch.from_numpy(b["_blob"])
+            return torch.from_numpy(b["_blob"])
 
 
 def split_blob(blob, offs):
@@ -449,31 +463,43 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     PCM MBs (which x264 never emits, and which the JAX pipeline also
     runs apart) always goes op by op through ``decode_rows``.  Decodes
     in several threads or on several CUDA streams take turns at the
-    shared steps (``StepCache.hold``)."""
-    from .decoder import DecodedFrame
-    from .utils.obs import StageTimers
-
-    dev = resolve_device(device)
-    cuda = dev.type == "cuda"
+    shared steps (``StepCache.hold``).  `timers` (a
+    ``utils.obs.StageTimers``, or anything with its ``stage`` and
+    ``count``) takes the call's host work in stages, none inside
+    another: parse (NAL split and headers), alloc (the call's device
+    planes and staging blobs), those of ``BlobStaging.pack`` (wait,
+    prep, entropy, redecode, alloc, pad), pack (a PCM batch's rows),
+    hold, ship, dispatch, harvest, wait (the last drain) and fallback
+    (``utils.obs.STAGES``); and the counters frames, bins, wire_bytes
+    and retries (``utils.obs.COUNTERS``)."""
     tm = timers if timers is not None else StageTimers()
     with tm.stage("parse"):
+        from .decoder import DecodedFrame
+
+        dev = resolve_device(device)
+        cuda = dev.type == "cuda"
         pics, sps, pps = _parse_pictures(stream)
-    if not pics or not all(_gop_supported(sps, pps, h) for _, h in pics):
+        inside = bool(pics) and all(_gop_supported(sps, pps, h)
+                                    for _, h in pics)
+    if not inside:
         if device_out or stacked_out:
             raise ValueError("device_out/stacked_out need a stream inside "
                              "the batched all-intra scope")
         decode_annexb_gop_pipelined.fallback_calls += 1
-        return decode_annexb_fast(stream, n_threads=n_threads, device=dev,
-                                  graph=graph)
+        with tm.stage("fallback"):
+            return decode_annexb_fast(stream, n_threads=n_threads,
+                                      device=dev, graph=graph)
 
-    mb_w, mb_h = sps.pic_width_in_mbs, sps.frame_height_in_mbs
-    n = mb_w * mb_h
-    npad = round_up(n, BLK)
-    F = gop
-    deblocked = any(h.deblocking is None or h.deblocking.disable_idc != 1
-                    for _, hs in pics for h in hs)
-    c0, c1 = pps.chroma_qp_index_offset, pps.second_chroma_qp_offset
-    model = None
+    with tm.stage("parse"):
+        mb_w, mb_h = sps.pic_width_in_mbs, sps.frame_height_in_mbs
+        n = mb_w * mb_h
+        npad = round_up(n, BLK)
+        F = gop
+        deblocked = any(h.deblocking is None
+                        or h.deblocking.disable_idc != 1
+                        for _, hs in pics for h in hs)
+        c0, c1 = pps.chroma_qp_index_offset, pps.second_chroma_qp_offset
+        model = None
 
     def get_model():
         nonlocal model
@@ -481,19 +507,24 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
             model = PackedGopDecoder(mb_w, mb_h, F, deblocked, c0, c1, dev)
         return model
 
-    results = []
-    pending = None
-    batches = [pics[b0:b0 + F] for b0 in range(0, len(pics), F)]
-    shapes = [(F, 16 * mb_h, 16 * mb_w)] + [(F, 8 * mb_h, 8 * mb_w)] * 2
-    sizes = [int(np.prod(sh)) for sh in shapes]
-    if stacked_out or device_out:
-        # the decode's planes on the device: one allocation per plane,
-        # batch b's planes its slices.  A batch's call then takes no card
-        # memory: with earlier batches' planes held, the caching allocator
-        # serves a new ~50 MB block by cudaMalloc, which held the call for
-        # 2-37 ms (H100, chip_smoke's per-call counts)
-        whole = [torch.empty((len(batches) * F, *sh[1:]), dtype=torch.uint8,
-                             device=dev) for sh in shapes]
+    with tm.stage("alloc"):
+        results = []
+        pending = None
+        batches = [pics[b0:b0 + F] for b0 in range(0, len(pics), F)]
+        shapes = [(F, 16 * mb_h, 16 * mb_w)] + [(F, 8 * mb_h, 8 * mb_w)] * 2
+        sizes = [int(np.prod(sh)) for sh in shapes]
+        if stacked_out or device_out:
+            # the decode's planes on the device: one allocation per
+            # plane, batch b's planes its slices.  A batch's call then
+            # takes no card memory: with earlier batches' planes held,
+            # the caching allocator serves a new ~50 MB block by
+            # cudaMalloc, which held the call for 2-37 ms (H100,
+            # chip_smoke's per-call counts)
+            whole = [torch.empty((len(batches) * F, *sh[1:]),
+                                 dtype=torch.uint8, device=dev)
+                     for sh in shapes]
+        staging = BlobStaging(F, npad, n, pin=cuda)
+        cur = 0
 
     def out_of(b):
         """The tensors batch b's planes are copied into: slices of the
@@ -525,7 +556,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
         return ev
 
     def harvest(p):
-        (r, ev), nf = p
+        r, ev, nf = p
         y, cb, cr = r
         if stacked_out:
             results.append((y, cb, cr, nf))
@@ -539,8 +570,6 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                 results.append(DecodedFrame(ys[i], cbs[i], crs[i])
                                .crop(sps))
 
-    staging = BlobStaging(F, npad, n, pin=cuda)
-    cur = 0
     for b, batch in enumerate(batches):
         host = staging.pack(cur, batch, sps, pps, n_threads, tm)
         if host is None:
@@ -549,23 +578,25 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
             with tm.stage("pack"):
                 rows = _pcm_batch_rows(batch, sps, pps, F, n, n_threads)
             with tm.stage("ship"):
+                tm.count("wire_bytes", sum(a.nbytes for a in rows))
                 i16, u8, pcm_y, pcm_c = (torch.from_numpy(a).to(dev)
                                          for a in rows)
             with tm.stage("dispatch"):
                 r = into(get_model().decode_rows(i16, u8, pcm_y, pcm_c),
-                         out_of(b)), copied()
+                         out_of(b)), copied(), len(batch)
             if pending is not None:
                 with tm.stage("harvest"):
                     harvest(pending)
-            pending = (r, len(batch))
+            pending = r
             continue
         W, ecap, ovcap = staging.caps
-        with (STEPS.hold(
+        with staged(tm, "hold", lambda: STEPS.hold(
                 (dev, mb_w, mb_h, F, deblocked, c0, c1, W, ecap, ovcap),
                 lambda: functools.partial(get_model(), W=W, ecap=ecap,
                                           ovcap=ovcap), [host], dev)
-              if graph else contextlib.nullcontext()) as step:
+                if graph else contextlib.nullcontext()) as step:
             with tm.stage("ship"):
+                tm.count("wire_bytes", host.numel())
                 if graph:
                     step.load(host)
                 else:
@@ -576,17 +607,19 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
             with tm.stage("dispatch"):
                 out = out_of(b)
                 r = (step(out) if graph else
-                     into(get_model()(blob, W, ecap, ovcap), out)), copied()
+                     into(get_model()(blob, W, ecap, ovcap), out)), \
+                    copied(), len(batch)
         if pending is not None:
             with tm.stage("harvest"):
                 harvest(pending)
-        pending = (r, len(batch))
+        pending = r
         cur ^= 1
     if pending is not None:
         with tm.stage("harvest"):
             harvest(pending)
     # the staging blobs are freed on return: let their copies drain
-    staging.drain()
+    with tm.stage("wait"):
+        staging.drain()
     return results
 
 

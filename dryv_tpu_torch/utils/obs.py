@@ -5,10 +5,14 @@ The reference's only instrumentation is a colored `log!` macro with
 per-layer tags (`#[moov]`, `#[stbl]` — src/ascii.rs:100) plus a wall-clock
 print and an unreported CABAC bin counter (SURVEY.md §5).  Here:
 - `logger(tag)` — stdlib logging with the same per-layer-tag convention
-- `StageTimers` — demux / entropy / pack / device-recon timers with
-  bins/s, MB/s, frames/s counters
+- `StageTimers` — what the decode entries' ``timers=`` argument takes:
+  seconds and calls per host stage (``STAGES``) and work counters
+  (``COUNTERS``); while a ``torch.profiler`` records, each stage is also
+  a range ``dryv.<stage>`` on the profiler's timeline
+- `staged()` — a context manager entered and left inside a stage
 - `trace_device()` — context manager around a `torch.profiler` trace of
-  the host and the CUDA device, written as a Chrome trace
+  the host and the CUDA device, written as a Chrome trace (the CLI's
+  ``--trace DIR``)
 """
 from __future__ import annotations
 
@@ -17,6 +21,39 @@ import logging
 import os
 import time
 from collections import defaultdict
+
+# the host stages of the decode entries (``device_ipb_packed`` and
+# ``gop_pipeline``), each call's host lines cut into them with no stage
+# inside another, so a call's wall time minus their sum is the time no
+# stage names:
+#   split     NAL split, parameter sets, access units (I/P/B; the batched
+#             entry does these inside parse)
+#   parse     slice headers, POC and reference lists
+#   entropy   the C++ entropy decode (batched: fused with the pack)
+#   redecode  a picture decoded again after a staging cap growth
+#   motion    motion derivation and weighted-prediction tables
+#   prep      a batched picture's deblock controls
+#   pack      the wire blob (I/P/B), a PCM batch's host rows (batched)
+#   pad       a batch's tail padded with its last picture
+#   alloc     the call's pinned staging blobs and device planes, and the
+#             blobs of a cap growth
+#   wait      the host blocked on a card event: slot reuse, a growth's
+#             drain, the call's last drain
+#   hold      entering and leaving ``StepCache.hold``
+#   ship      enqueueing the host-to-card copies
+#   dispatch  enqueueing the step (a graph replay) and its planes' copies
+#   harvest   the planes handed back (host frames: the card-to-host copy)
+#   dpb       reference marking, stored motion fields, display order
+#   fallback  a stream that left the path, on the decoder it went to
+STAGES = ("split", "parse", "entropy", "redecode", "motion", "prep", "pack",
+          "pad", "alloc", "wait", "hold", "ship", "dispatch", "harvest",
+          "dpb", "fallback")
+# frames: pictures decoded; bins: CABAC bins of their slices (the native
+# entropy's bin_count); wire_bytes: bytes of each host blob shipped to
+# the card (a batch's whole blob, padded tail included); retries:
+# pictures whose entropy or pack ran again after a staging cap growth
+COUNTERS = ("frames", "bins", "wire_bytes", "retries")
+RANGE = "dryv."
 
 
 def logger(tag: str) -> logging.Logger:
@@ -33,7 +70,11 @@ def enable_debug_log(path: str = "debug.log") -> None:
 
 
 class StageTimers:
-    """Accumulates wall time + work counters per pipeline stage."""
+    """Seconds and calls per stage, and work counters, of the decodes it
+    is handed to.  ``stage(name)`` times its body on ``perf_counter``;
+    while a ``torch.profiler`` records, the body is also the range
+    ``dryv.<name>``, on the clock of the profiler's device activity.
+    ``count(name, v)`` adds an integer."""
 
     def __init__(self):
         self.t = defaultdict(float)
@@ -42,35 +83,57 @@ class StageTimers:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.t[name] += time.perf_counter() - t0
-            self.n[name] += 1
+        import torch
+
+        with (torch.profiler.record_function(RANGE + name)
+              if torch.autograd._profiler_enabled()
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.t[name] += time.perf_counter() - t0
+                self.n[name] += 1
 
     def count(self, name: str, v: int) -> None:
         self.counters[name] += v
 
     def report(self) -> dict:
-        out = {}
-        for k in self.t:
-            out[k] = {"total_s": round(self.t[k], 4), "calls": self.n[k]}
-        if "entropy" in self.t and self.counters.get("bins"):
+        """Each stage's seconds and calls, the counters, and bins_per_s
+        (bins over the entropy stage's seconds) where both were taken."""
+        out = {"stages": {k: {"total_s": round(v, 4), "calls": self.n[k]}
+                          for k, v in self.t.items()},
+               "counters": dict(self.counters)}
+        if self.t.get("entropy") and self.counters.get("bins"):
             out["bins_per_s"] = int(self.counters["bins"] / self.t["entropy"])
-        if "recon" in self.t and self.counters.get("mbs"):
-            out["mbs_per_s"] = int(self.counters["mbs"] / self.t["recon"])
-        if self.counters.get("frames") and sum(self.t.values()) > 0:
-            out["frames_per_s"] = round(
-                self.counters["frames"] / sum(self.t.values()), 2)
         return out
+
+
+@contextlib.contextmanager
+def staged(timers, name: str, make):
+    """The context manager ``make()`` made, entered and left inside stage
+    `name` of `timers`, and the body of the ``with`` outside it, so that
+    the stages the body opens do not nest in `name`."""
+    with timers.stage(name):
+        cm = make()
+        value = cm.__enter__()
+    try:
+        yield value
+    except BaseException as e:
+        with timers.stage(name):
+            if not cm.__exit__(type(e), e, e.__traceback__):
+                raise
+    else:
+        with timers.stage(name):
+            cm.__exit__(None, None, None)
 
 
 @contextlib.contextmanager
 def trace_device(logdir: str = "temp/dryv_tpu_torch_trace"):
     """torch.profiler trace (host ops and, where CUDA is present, device
     kernels) around a decode region; yields the profiler, and on exit
-    writes ``trace.json`` (Chrome trace format) into `logdir`."""
+    writes ``trace.json`` (Chrome trace format) into `logdir`.  The
+    decode's ``dryv.<stage>`` ranges land in it."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]

@@ -112,7 +112,8 @@ class TorchVideo:
           whole stream with its demux and pipeline stages accumulated for
           --stats, without it ``pipeline.decode_annexb_fast``;
         - "device-ipb": the packed I/P/B path on `device`
-          (``device_ipb_packed.decode_annexb_device_packed``);
+          (``device_ipb_packed.decode_annexb_device_packed``, its stages
+          into `timers`);
         - "native": the C++ host decoder (``native.full``);
         - "scalar": the Python reference decoder."""
         if backend not in BACKENDS:
@@ -128,14 +129,15 @@ class TorchVideo:
             if max_frames:
                 frames = frames[:max_frames]
             return sorted(frames, key=lambda f: f.poc)
+        if backend == "device-ipb":
+            from .device_ipb_packed import decode_annexb_device_packed
+            frames = decode_annexb_device_packed(
+                stream, max_frames=max_frames, device=device, timers=timers)
+            return sorted(frames, key=lambda f: f.poc)
         with stage("decode"):
             if backend == "torch":
                 frames = decode_annexb_fast(stream, max_frames=max_frames,
                                             device=device)
-            elif backend == "device-ipb":
-                from .device_ipb_packed import decode_annexb_device_packed
-                frames = decode_annexb_device_packed(
-                    stream, max_frames=max_frames, device=device)
             elif backend == "native":
                 from .native.full import decode_annexb_native
                 frames = decode_annexb_native(stream, max_frames=max_frames)

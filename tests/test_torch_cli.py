@@ -158,3 +158,32 @@ def test_debug_writes_debug_log(ipb_mp4, tmp_path, monkeypatch):
         root.setLevel(level)
     log = (tmp_path / "debug.log").read_text()
     assert "[dryv_tpu_torch.cli]" in log and "ipb.mp4" in log
+
+
+@pytest.mark.parametrize("backend", ["device-ipb", "torch"])
+def test_trace_writes_the_stages_as_profiler_ranges(backend, ipb_mp4,
+                                                    tmp_path, capsys):
+    """--trace DIR writes a torch.profiler trace of the decode holding
+    its dryv.<stage> ranges; --stats prints the stages and the counters
+    of the path that decoded (the torch backend's batched pipeline hands
+    this inter stream on whole, under its fallback stage)."""
+    import json
+
+    out, trace = tmp_path / "out.yuv", tmp_path / "trace"
+    assert cli.main([str(ipb_mp4[0]), "-o", str(out), "--frames", "0",
+                     "--device", "cpu", "--backend", backend, "--stats",
+                     "--trace", str(trace)]) == 0
+    text = capsys.readouterr().out
+    stats = json.loads(text.split("stats: ", 1)[1].splitlines()[0])
+    assert f"trace: {trace / 'trace.json'}" in text
+    events = json.loads((trace / "trace.json").read_text())["traceEvents"]
+    ranges = {e["name"][len("dryv."):] for e in events
+              if e.get("name", "").startswith("dryv.")}
+    assert ranges == set(stats["stages"])
+    if backend == "device-ipb":
+        assert {"split", "entropy", "pack", "dispatch", "dpb"} <= ranges
+        assert stats["counters"]["frames"] == 3
+        assert stats["counters"]["bins"] > 0 and stats["bins_per_s"] > 0
+        assert stats["counters"]["wire_bytes"] > 0
+    else:
+        assert ranges == {"demux", "parse", "fallback"}

@@ -1,0 +1,288 @@
+"""The host stages and counters of the port's two decode entries
+(``device_ipb_packed.decode_annexb_device_packed`` and
+``gop_pipeline.decode_annexb_gop_pipelined`` with ``BlobStaging.pack``),
+on the CPU with the benchmark's tiny streams (``avcbench/tests/configs``):
+a recording timer that fails on a nested stage or a count outside every
+stage, each call the entries make from their own frames checked to run
+inside a stage, and the counters frames, bins, wire_bytes and retries
+held to what the native entropy, the pack and the step's loads saw.
+Also ``utils.obs.StageTimers``: its ``dryv.<stage>`` ranges under
+``torch.profiler`` and none without one, and its report."""
+import contextlib
+import re
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import pytest
+import torch
+
+from dryv_tpu_torch import device_ipb_packed, gop_pipeline, graphs
+from dryv_tpu_torch.native import entropy
+from dryv_tpu_torch.utils import obs
+
+CONFIGS = Path(__file__).resolve().parent.parent / "avcbench" / "tests" \
+    / "configs"
+IPB = (CONFIGS / "tiny-ipb" / "gop_s1.264").read_bytes()
+INTRA = (CONFIGS / "tiny-intra" / "idr16_s3.264").read_bytes()
+
+# the functions whose own frames the stages must cover, and what they may
+# call outside every stage: the stage context managers themselves, the
+# helpers that open their own stages, and the loop's enumerate
+ENTRY_CODES = {"decode_annexb_device_packed", "decode_annexb_gop_pipelined",
+               "pack", "_grow"}
+MAY_CALL_OUTSIDE = {"helper", "__enter__", "__exit__", "staged", "pack",
+                    "_grow", "drain", "to_host", "enumerate"}
+
+
+class Recorder:
+    """The ``timers=`` protocol, failing on a stage opened inside another
+    and on a count made outside every stage."""
+
+    def __init__(self):
+        self.t = defaultdict(float)
+        self.counters = defaultdict(int)
+        self.open = None
+        self.names = []
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        assert self.open is None, f"stage {name} inside {self.open}"
+        self.open = name
+        self.names.append(name)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.t[name] += time.perf_counter() - t0
+            self.open = None
+
+    def count(self, name, v):
+        assert self.open is not None, f"count {name} outside every stage"
+        self.counters[name] += v
+
+
+def traced_decode(decode, monkeypatch):
+    """Run decode(tm) with a Recorder; returns it, the calls made from
+    the entries' own frames while no stage was open, the bytes each
+    step load took, each native entropy call's (picture key, bins) and
+    the picture each pack_frame call packed."""
+    tm = Recorder()
+    loads, decodes, packs = [], [], []
+    load = graphs.Step.load
+
+    def counted_load(self, *xs):
+        loads.append(xs[0].numel() * xs[0].element_size())
+        return load(self, *xs)
+
+    def recorded(fn, key):
+        def wrapper(slice_datas, *args, **kw):
+            res = fn(slice_datas, *args, **kw)
+            out = res[0] if isinstance(res, tuple) else res
+            decodes.append((key(slice_datas), int(out["bin_count"].sum())))
+            return res
+        return wrapper
+
+    pack_frame = entropy.pack_frame
+
+    def counted_pack(*args, **kw):
+        packs.append(tm.counters["frames"])
+        return pack_frame(*args, **kw)
+
+    monkeypatch.setattr(graphs.Step, "load", counted_load)
+    monkeypatch.setattr(entropy, "decode_picture_slices",
+                        recorded(entropy.decode_picture_slices, id))
+    monkeypatch.setattr(entropy, "decode_pack_picture_islices",
+                        recorded(entropy.decode_pack_picture_islices, id))
+    monkeypatch.setattr(entropy, "pack_frame", counted_pack)
+    outside = []
+
+    def profile(frame, event, arg):
+        if event == "call":
+            caller, callee = frame.f_back, frame.f_code.co_name
+        elif event == "c_call":
+            caller, callee = frame, getattr(arg, "__name__", str(arg))
+        else:
+            return
+        if (caller is not None and tm.open is None
+                and caller.f_code.co_name in ENTRY_CODES
+                and caller.f_code.co_filename.endswith(
+                    ("device_ipb_packed.py", "gop_pipeline.py"))):
+            outside.append(callee)
+
+    sys.setprofile(profile)
+    try:
+        out = decode(tm)
+    finally:
+        sys.setprofile(None)
+    return tm, out, outside, loads, decodes, packs
+
+
+@pytest.fixture(scope="module")
+def ipb():
+    with pytest.MonkeyPatch.context() as mp:
+        return traced_decode(
+            lambda tm: device_ipb_packed.decode_annexb_device_packed(
+                IPB, n_threads=1, device_out=True, device="cpu", timers=tm),
+            mp)
+
+
+@pytest.fixture(scope="module")
+def intra():
+    """Two calls on the stream of 16 IDR pictures twice over (two
+    batches of 16): the staging lives for a call, so each grows it."""
+    runs = []
+    for _ in range(2):
+        with pytest.MonkeyPatch.context() as mp:
+            runs.append(traced_decode(
+                lambda tm: gop_pipeline.decode_annexb_gop_pipelined(
+                    INTRA * 2, gop=16, n_threads=1, device="cpu",
+                    stacked_out=True, timers=tm), mp))
+    return runs
+
+
+def test_stage_list_is_documented():
+    """``utils.obs.STAGES`` is the list its comment documents, in order,
+    and ``COUNTERS`` the four counters."""
+    text = Path(obs.__file__).read_text()
+    assert tuple(re.findall(r"^#   (\w+) ", text, re.M)) == obs.STAGES
+    assert obs.COUNTERS == ("frames", "bins", "wire_bytes", "retries")
+
+
+@pytest.mark.parametrize("path,want", [
+    ("ipb", {"split", "parse", "entropy", "motion", "alloc", "pack", "wait",
+             "hold", "ship", "dispatch", "dpb"}),
+    ("intra", {"parse", "alloc", "prep", "entropy", "redecode", "wait",
+               "pad", "hold", "ship", "dispatch", "harvest"}),
+])
+def test_stage_names(path, want, request):
+    runs = request.getfixturevalue(path)
+    tm = (runs if path == "ipb" else runs[0])[0]
+    assert set(tm.names) == want
+    assert want <= set(obs.STAGES)
+
+
+@pytest.mark.parametrize("path", ["ipb", "intra"])
+def test_every_call_of_the_entries_runs_inside_a_stage(path, request):
+    """No stage nests in another (the Recorder fails on one), and each
+    call the entries make from their own frames outside every stage is
+    a stage's own context manager or a helper that opens stages."""
+    runs = request.getfixturevalue(path)
+    for run in ([runs] if path == "ipb" else runs):
+        assert set(run[2]) <= MAY_CALL_OUTSIDE, set(run[2]) - \
+            MAY_CALL_OUTSIDE
+
+
+def _pictures(decodes):
+    """Bins per picture: consecutive entropy calls on one picture's
+    slices (a redecode after a growth) are one picture."""
+    out = []
+    for i, (key, bins) in enumerate(decodes):
+        if i and key == decodes[i - 1][0]:
+            assert bins == out[-1]
+            continue
+        out.append(bins)
+    return out
+
+
+def test_ipb_counters(ipb):
+    tm, frames, _, loads, decodes, packs = ipb
+    assert len(frames) == 10
+    pics = _pictures(decodes)
+    assert tm.counters["frames"] == len(pics) == 10
+    assert tm.counters["bins"] == sum(pics) > 0
+    assert tm.counters["wire_bytes"] == sum(loads) > 0 and len(loads) == 10
+    # a picture's pack ran again after each growth of the blobs' caps
+    per_pic = defaultdict(int)
+    for f in packs:
+        per_pic[f] += 1
+    assert tm.counters["retries"] == sum(c > 1 for c in per_pic.values())
+    assert tm.counters["retries"] >= 1     # the caps start at 32/1024/256
+
+
+def test_intra_counters(intra):
+    for tm, out, _, loads, decodes, _ in intra:
+        assert sum(nf for *_, nf in out) == 32
+        pics = _pictures(decodes)
+        assert tm.counters["frames"] == len(pics) == 32
+        assert tm.counters["bins"] == sum(pics) > 0
+        # each batch's whole blob, its padded tail included
+        assert tm.counters["wire_bytes"] == sum(loads) and len(loads) == 2
+        retried = len(decodes) - len(pics)
+        assert retried >= 1 and "redecode" in tm.names
+        assert 1 <= tm.counters["retries"] <= retried
+    # the staging lives for a call: the second grows as the first did
+    assert intra[0][0].counters == intra[1][0].counters
+
+
+def test_staging_started_large_enough_retries_nothing():
+    from dryv_tpu_torch.kernels.geometry import BLK, round_up
+
+    pics, sps, pps = gop_pipeline._parse_pictures(INTRA)
+    n = sps.pic_width_in_mbs * sps.frame_height_in_mbs
+    grown = gop_pipeline.BlobStaging(4, round_up(n, BLK), n, slots=1)
+    tm = Recorder()
+    first = grown.pack(0, pics[:4], sps, pps, 1, tm).clone()
+    assert tm.counters["retries"] >= 1 and grown.caps != (32, 256, 64)
+    big = gop_pipeline.BlobStaging(4, round_up(n, BLK), n, slots=1)
+    big._grow(grown.caps, Recorder())
+    tm2 = Recorder()
+    again = big.pack(0, pics[:4], sps, pps, 1, tm2)
+    assert tm2.counters["retries"] == 0 and "redecode" not in tm2.names
+    assert tm2.counters["frames"] == tm.counters["frames"] == 4
+    assert tm2.counters["bins"] == tm.counters["bins"]
+    assert torch.equal(again, first)
+
+
+def test_stage_timers_open_ranges_under_the_profiler():
+    tm = obs.StageTimers()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tm.stage("entropy"):
+            torch.ones(4).add_(1)
+    ev = prof.events()
+    ranges = [e for e in ev if e.name == "dryv.entropy"]
+    assert len(ranges) == 1
+    add = next(e for e in ev if e.name == "aten::add_")
+    assert add.cpu_parent is not None
+    assert add.cpu_parent.name == "dryv.entropy"
+    assert tm.n["entropy"] == 1 and tm.t["entropy"] > 0
+
+
+def test_stage_timers_open_no_range_without_a_profiler(monkeypatch):
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name))
+    tm = obs.StageTimers()
+    with tm.stage("parse"):
+        pass
+    assert opened == [] and tm.n["parse"] == 1
+
+
+def test_decode_under_the_profiler_has_a_range_per_stage():
+    tm = obs.StageTimers()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        gop_pipeline.decode_annexb_gop_pipelined(
+            INTRA, gop=16, n_threads=1, device="cpu", stacked_out=True,
+            timers=tm)
+    names = defaultdict(int)
+    for e in prof.events():
+        if e.name.startswith(obs.RANGE):
+            names[e.name[len(obs.RANGE):]] += 1
+    assert dict(names) == dict(tm.n)
+
+
+def test_report_has_stages_counters_and_bins_per_s():
+    tm = obs.StageTimers()
+    with tm.stage("entropy"):
+        time.sleep(0.01)
+    tm.count("bins", 1000)
+    tm.count("frames", 2)
+    r = tm.report()
+    assert set(r) == {"stages", "counters", "bins_per_s"}
+    assert r["stages"]["entropy"]["calls"] == 1
+    assert r["counters"] == {"bins": 1000, "frames": 2}
+    assert 0 < r["bins_per_s"] <= 100000
+    assert set(obs.StageTimers().report()) == {"stages", "counters"}
