@@ -7,9 +7,11 @@ Usage: python -m dryv_tpu_torch <file.mp4> [-d] [-o OUT] [--frames N]
        [--stats] [--trace DIR] [--device cuda|cpu] [--all-frames]
 
 --stats prints the decode's host stages (seconds and calls), its
-counters (frames, CABAC bins, wire bytes, staging retries) and bins/s as
-JSON.  --trace DIR records the decode under torch.profiler (host ops,
-and the card's kernels and copies where CUDA is present) and writes
+counters (frames, CABAC bins, wire bytes, staging retries, pictures of
+parallel batches, the native tasks' microseconds), bins/s and the
+batched entropy's parallelism as JSON.  --trace DIR records the decode
+under torch.profiler (host ops, and the card's kernels and copies where
+CUDA is present) and writes
 DIR/trace.json, a Chrome trace; it takes the stage timers as --stats
 does, so the trace also holds each stage as a range ``dryv.<stage>``
 on the same clock as the card's activity.

@@ -1,7 +1,8 @@
 """Batch-pipelined intra GOP decode on PyTorch: the port's main path.
 
-Per batch of F pictures: the C++ slice-parallel entropy stage (the port's
-copy of the JAX package's, ``native.entropy``) fills one
+Per batch of F pictures: the C++ entropy stage (the port's copy of the
+JAX package's, ``native.entropy``, with a batch entry of the port's own:
+the batch's pictures and their slices in parallel on the host) fills one
 preallocated uint8 blob in pinned host memory; the blob goes to the
 device in one non-blocking copy; ``PackedGopDecoder`` then densifies the
 coefficients (kernel B1), applies the |v|>127 and heavy-MB fixes,
@@ -185,68 +186,87 @@ class BlobStaging:
                 nv["cnt"] = old["cnt"]
                 self.bufs[k] = nv
 
+    def _needs(self, todo, res):
+        """The caps that the pictures `todo`, decoded at ``caps`` with
+        results `res` (rows of maxnz, n_exc, n_ovf, bins), ask for, and
+        the pictures to decode again at them.  A dense picture (most of
+        its MBs' bytes in 816-byte overflow rows) grows the sticky vals
+        stride W to its true per-MB max, rounded to 32 and at most 256;
+        once W grows, every picture whose max exceeded the old W packs
+        otherwise and is decoded again, and its exc/ovf counts at the
+        old W are not needs.  The others' exception and overflow counts
+        grow ecap and ovcap (rounded to 256 and 64) to the largest
+        need."""
+        W, ecap, ovcap = self.caps
+        maxnz, nexc, novf = (res[:, j] for j in range(3))
+        dense = (maxnz > W) & (W < 256) & (novf * 816 > self.npad * 32)
+        W2 = max([W] + [min(_round_cap(m, 32), 256) for m in maxnz[dense]])
+        stale = (maxnz > W) & (W2 > W)
+        over_e = (nexc > ecap) & ~stale
+        over_o = (novf > ovcap) & ~stale
+        ecap2 = max([ecap] + [_round_cap(e, 256) for e in nexc[over_e]])
+        ovcap2 = max([ovcap] + [_round_cap(o, 64) for o in novf[over_o]])
+        redo = [i for i, r in zip(todo, stale | over_e | over_o) if r]
+        return (W2, ecap2, ovcap2), redo
+
     def pack(self, k, batch, sps, pps, n_threads, tm):
         """Entropy-decode and pack a batch of (slice_datas, headers) into
         slot k, growing the caps as its pictures need, and pad the tail
         by replicating the last picture.  Returns the blob as a uint8
-        tensor, or None at the first picture holding PCM MBs, which the
-        wire does not carry.  `tm` takes the work in the stages wait,
-        prep, entropy (the fused entropy and pack), redecode (a picture
-        decoded again after a cap growth), alloc and pad, and counts
-        frames, bins and retries."""
+        tensor, or None if a picture holds PCM MBs, which the wire does
+        not carry.  One native call (``decode_pack_batch``) decodes the
+        whole batch on up to `n_threads` host threads at the current
+        caps; if pictures need more, the caps grow once to the batch's
+        largest need and one more call decodes those pictures again,
+        until none exceeds them.  The blob is then the same as a decode
+        of every picture at the final caps.  `tm` takes the work in the
+        stages wait, prep, entropy (the first call), redecode (a later
+        one), alloc and pad, and counts frames, bins, retries (pictures
+        decoded again), par_pictures (the batch's pictures, if more than
+        one task ran at once in its first call) and entropy_task_us (the
+        native tasks' summed wall time, in every call)."""
         if self.ev[k] is not None:
             with tm.stage("wait"):
                 self.ev[k].synchronize()
-        npad = self.npad
-        b = self.bufs[k]
-        for i, (slice_datas, headers) in enumerate(batch):
-            with tm.stage("prep"):
-                ctl = _dbctl_of(headers)
-            stage = "entropy"
-            while True:
-                # fused: slice workers pack their MB ranges cache-hot
-                with tm.stage(stage):
-                    from .native.entropy import decode_pack_picture_islices
+        with tm.stage("prep"):
+            ctls = [_dbctl_of(headers) for _, headers in batch]
+            todo = list(range(len(batch)))
+            retried = set()
+        stage = "entropy"
+        while True:
+            with tm.stage(stage):
+                from .native.entropy import decode_pack_batch
 
-                    b["exc_idx"][i] = 0
-                    b["exc_delta"][i] = 0
-                    b["ovf_idx"][i] = npad
-                    W, ecap, ovcap = self.caps
-                    out, maxnz, nexc, novf = decode_pack_picture_islices(
-                        slice_datas, sps, pps, W, ctl, b["bmp"][i],
-                        b["vals"][i], b["cnt"][i], b["u8"][i],
-                        b["exc_idx"][i], b["exc_delta"][i],
-                        b["ovf_idx"][i], b["ovf_rows"][i],
-                        n_threads=n_threads, reuse=True)
-                    if stage == "entropy":
-                        tm.count("frames", 1)
-                        tm.count("bins", int(out["bin_count"].sum()))
-                    # rare growth retries (sticky caps, typically once
-                    # per stream on the first picture) re-decode the
-                    # picture
-                    if maxnz < 0:
-                        caps = None
-                    elif maxnz > W and W < 256 and novf * 816 > npad * 32:
-                        # dense stream: grow the sticky stride to the
-                        # true per-MB max instead of shipping 816-byte
-                        # overflow rows; earlier slots of this batch stay
-                        # valid
-                        caps = (min(_round_cap(maxnz, 32), 256), ecap, ovcap)
-                    elif nexc > ecap:
-                        caps = (W, _round_cap(nexc, 256), ovcap)
-                    elif novf > ovcap:
-                        caps = (W, ecap, _round_cap(novf, 64))
-                    else:
-                        caps = None
-                    if caps is not None and stage == "entropy":
-                        tm.count("retries", 1)
-                if maxnz < 0:
-                    return None
-                if caps is None:
-                    break
-                self._grow(caps, tm)
                 b = self.bufs[k]
-                stage = "redecode"
+                if stage == "redecode":
+                    # rows of the earlier decode past its new n_ovf
+                    b["ovf_rows"][todo] = 0
+                b["exc_idx"][todo] = 0
+                b["exc_delta"][todo] = 0
+                b["ovf_idx"][todo] = self.npad
+                res, (task_us, peak) = decode_pack_batch(
+                    [(batch[i][0], ctls[i]) for i in todo], sps, pps,
+                    self.caps[0],
+                    [tuple(b[key][i] for key in _WIRE_VIEWS) for i in todo],
+                    n_threads=n_threads)
+                tm.count("entropy_task_us", task_us)
+                if stage == "entropy":
+                    tm.count("frames", len(batch))
+                    tm.count("bins", int(res[:, 3].sum()))
+                    if peak > 1:
+                        tm.count("par_pictures", len(batch))
+                pcm = bool((res[:, 0] < 0).any())
+                caps, redo = (self.caps, []) if pcm else \
+                    self._needs(todo, res)
+                tm.count("retries", len(set(redo) - retried))
+                retried.update(redo)
+            if pcm:
+                return None
+            if not redo:
+                break
+            self._grow(caps, tm)
+            todo = redo
+            stage = "redecode"
         with tm.stage("pad"):
             last = len(batch) - 1
             for i in range(len(batch), self.F):
@@ -254,6 +274,11 @@ class BlobStaging:
                             "exc_delta", "ovf_idx", "ovf_rows"):
                     b[key][i] = b[key][last]
             return torch.from_numpy(b["_blob"])
+
+
+# a picture's slot views, in the order the native pack takes them
+_WIRE_VIEWS = ("bmp", "vals", "cnt", "u8", "exc_idx", "exc_delta", "ovf_idx",
+               "ovf_rows")
 
 
 def split_blob(blob, offs):
@@ -470,8 +495,8 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     planes and staging blobs), those of ``BlobStaging.pack`` (wait,
     prep, entropy, redecode, alloc, pad), pack (a PCM batch's rows),
     hold, ship, dispatch, harvest, wait (the last drain) and fallback
-    (``utils.obs.STAGES``); and the counters frames, bins, wire_bytes
-    and retries (``utils.obs.COUNTERS``)."""
+    (``utils.obs.STAGES``); and the counters frames, bins, wire_bytes,
+    retries, par_pictures and entropy_task_us (``utils.obs.COUNTERS``)."""
     tm = timers if timers is not None else StageTimers()
     with tm.stage("parse"):
         from .decoder import DecodedFrame

@@ -1,4 +1,8 @@
-// Copy of dryv_tpu/native/entropy.cc (one comment names the reference by its repo path).
+// Copy of dryv_tpu/native/entropy.cc (one comment names the reference by its repo path),
+// but for what the port adds: the batch entry dt_decode_pack_batch (a
+// batch's pictures decoded and packed in one call, each slice of each
+// picture a task, each picture in flight on an output arena of its own)
+// and SlicePool's limit on the threads that join a run.
 // TPU-native AVC host entropy stage: CABAC I-slice decoder producing dense
 // per-frame syntax arrays for the device reconstruction pipeline.
 //
@@ -10,13 +14,16 @@
 // slice boundaries, so there is no shared mutable state.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 -pthread entropy.cc -o libdryv_entropy.so
+#include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -45,7 +52,8 @@ namespace {
 // one std::thread per slice costs ~1-2 ms/frame at 17 slices; a resident
 // pool makes per-frame dispatch ~free.  run_parallel(n, f) executes
 // f(0..n-1) across the pool (including the calling thread) and returns
-// when all are done.
+// when all are done; with `limit` > 0 at most limit - 1 workers join
+// the caller (the others go back to sleep at once: no thread spins).
 class SlicePool {
  public:
   static SlicePool& inst() {
@@ -53,10 +61,13 @@ class SlicePool {
     return p;
   }
 
-  void run_parallel(int n, const std::function<void(int)>& f) {
+  void run_parallel(int n, const std::function<void(int)>& f,
+                    int limit = 0) {
     std::unique_lock<std::mutex> lk(m_);
     task_ = &f;
     n_tasks_ = n;
+    limit_ = limit;
+    joined_ = 0;
     next_.store(0, std::memory_order_relaxed);
     pending_.store(n, std::memory_order_relaxed);
     gen_++;
@@ -105,6 +116,8 @@ class SlicePool {
       cv_.wait(lk, [&] { return stop_ || gen_ != seen; });
       if (stop_) return;
       seen = gen_;
+      if (limit_ > 0 && joined_ >= limit_ - 1) continue;
+      joined_++;
       running_++;
       lk.unlock();
       work();
@@ -124,6 +137,7 @@ class SlicePool {
   std::atomic<int> next_{0};
   std::atomic<int> pending_{0};
   int running_ = 0;
+  int limit_ = 0, joined_ = 0;
   uint64_t gen_ = 0;
   bool stop_ = false;
 };
@@ -2523,5 +2537,156 @@ extern "C" int dt_decode_pack_picture_slices(
   pack_out[1] = pj.nexc.load();
   pack_out[2] = pj.has_pcm.load();
   pack_out[3] = pj.novf.load();
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Batch decode+pack: the pictures of a batch (intra, CABAC) decoded and
+// packed in one call.  Every slice of every picture is a task; at most
+// n_threads tasks run at once, the calling thread included (n_threads 0:
+// at most min(16, hardware threads)).  Tasks are taken in picture order;
+// a picture takes one of the caller's output arenas (`outs`, one per
+// concurrent task slot) when its first slice is taken and gives it back
+// when its last slice is done, so at most n_outs pictures are in flight
+// (a thread that finds none free sleeps until one is given back).  Each
+// picture has its own pack state (PackJob: the exc/ovf counters, maxnz,
+// PCM).  MB neighbour state stays inside a slice (mb_at), so each
+// thread keeps one MB scratch array of its own, reused across calls.
+// Same packed bytes per picture as dt_decode_pack_picture_slices at the
+// same caps (one-slice pictures exactly; several slices append overflow
+// rows in the order they finish, as there).
+// ---------------------------------------------------------------------------
+namespace {
+
+struct PicJob {
+  const uint8_t* rbsp_all;  // the picture's concatenated slice rbsps
+  const SliceParams* sp;    // [n_slices]
+  const int32_t* dbctl;     // [n_slices*3]
+  uint8_t* bmp;             // [n*51]
+  int8_t* vals;             // [n*W]
+  int32_t* cnt;             // [n]
+  uint8_t* u8meta;          // [n*kMetaStride]
+  int32_t* exc_idx;         // [ecap]
+  int16_t* exc_delta;       // [ecap]
+  int32_t* ovf_idx;         // [ovcap]
+  int16_t* ovf_rows;        // [ovcap*408]
+  int32_t n_slices;
+};
+
+}  // namespace
+
+// results [n_pics*4]: maxnz|-1 (PCM), n_exc, n_ovf, bins per picture;
+// stats [2]: the tasks' summed wall time in microseconds, and the most
+// tasks that ran at once.
+extern "C" int dt_decode_pack_batch(
+    const PicJob* jobs, int32_t n_pics, PicParams pp, int32_t W,
+    int32_t ecap, int32_t ovcap, Out* outs, int32_t n_outs,
+    int32_t n_threads, int64_t* results, int64_t* stats) {
+  int n = pp.mb_w * pp.mb_h;
+  std::vector<int> task_pic, task_slice;
+  for (int p = 0; p < n_pics; p++)
+    for (int k = 0; k < jobs[p].n_slices; k++) {
+      task_pic.push_back(p);
+      task_slice.push_back(k);
+    }
+  int n_tasks = (int)task_pic.size();
+  int nt = n_threads;
+  if (nt <= 0)
+    nt = std::min(16, std::max(1, (int)std::thread::hardware_concurrency()));
+  nt = std::max(1, std::min(nt, n_tasks));
+  bool direct = pp.chroma_array_type == 1;
+  std::unique_ptr<PackJob[]> pjs(new PackJob[n_pics > 0 ? n_pics : 1]);
+  std::vector<int> slot_of(n_pics, -1), left(n_pics), free_slots;
+  for (int p = 0; p < n_pics; p++) {
+    left[p] = jobs[p].n_slices;
+    results[p * 4 + 3] = 0;
+  }
+  for (int s = std::max(1, std::min(nt, n_outs)) - 1; s >= 0; s--)
+    free_slots.push_back(s);
+  std::mutex m;
+  std::condition_variable cv;
+  int next = 0;
+  std::atomic<int> inflight{0}, peak{0};
+  std::atomic<int64_t> task_ns{0};
+
+  // open picture p on a free arena: its slice map and its pack state
+  auto open_pic = [&](int p) {
+    int s = free_slots.back();
+    free_slots.pop_back();
+    slot_of[p] = s;
+    const PicJob& J = jobs[p];
+    Out& o = outs[s];
+    for (int k = 0; k < J.n_slices; k++) {
+      int hi = (k + 1 < J.n_slices) ? J.sp[k + 1].first_mb : n;
+      for (int a = J.sp[k].first_mb; a < hi; a++) o.slice_id[a] = k;
+    }
+    PackJob& pj = pjs[p];
+    pj.kind = o.kind; pj.qp_y = o.qp_y; pj.i16_mode = o.i16_mode;
+    pj.chroma_mode = o.chroma_mode; pj.modes4 = o.modes4;
+    pj.modes8 = o.modes8; pj.slice_id = o.slice_id; pj.luma4 = o.luma4;
+    pj.luma8 = o.luma8; pj.luma_dc = o.luma_dc; pj.chroma_dc = o.chroma_dc;
+    pj.chroma_ac = o.chroma_ac; pj.transform8 = nullptr; pj.W = W;
+    pj.dbctl = J.dbctl; pj.bmp = J.bmp; pj.vals = J.vals; pj.cnt = J.cnt;
+    pj.u8meta = J.u8meta; pj.exc_idx = J.exc_idx;
+    pj.exc_delta = J.exc_delta; pj.ecap = ecap; pj.ovf_idx = J.ovf_idx;
+    pj.ovf_rows = J.ovf_rows; pj.ovcap = ovcap;
+  };
+
+  std::function<void(int)> runner = [&](int) {
+    thread_local std::vector<MB> mbs;
+    if ((int)mbs.size() < n) mbs.resize(n);
+    while (true) {
+      int t, p, s;
+      {
+        std::unique_lock<std::mutex> lk(m);
+        for (;;) {
+          if (next >= n_tasks) return;
+          t = next;
+          p = task_pic[t];
+          if (slot_of[p] >= 0 || !free_slots.empty()) break;
+          cv.wait(lk);
+        }
+        if (slot_of[p] < 0) open_pic(p);
+        s = slot_of[p];
+        next++;
+      }
+      auto t0 = std::chrono::steady_clock::now();
+      int c = inflight.fetch_add(1) + 1;
+      int pk = peak.load();
+      while (c > pk && !peak.compare_exchange_weak(pk, c)) {}
+      const PicJob& J = jobs[p];
+      int k = task_slice[t];
+      int lo = J.sp[k].first_mb;
+      int hi = (k + 1 < J.n_slices) ? J.sp[k + 1].first_mb : n;
+      Out o = outs[s];
+      int64_t bins = 0;
+      o.bin_count = &bins;
+      decode_one_slice(J.rbsp_all + J.sp[k].rbsp_off, J.sp[k], hi - 1, k,
+                       &pp, &o, &mbs, 0, direct ? &pjs[p] : nullptr);
+      if (!direct) pack_mb_range(pjs[p], lo, hi);
+      inflight.fetch_sub(1);
+      task_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                     std::chrono::steady_clock::now() - t0).count();
+      std::lock_guard<std::mutex> lk(m);
+      results[p * 4 + 3] += bins;
+      if (--left[p] == 0) {
+        free_slots.push_back(s);
+        cv.notify_all();
+      }
+    }
+  };
+  if (nt <= 1)
+    runner(0);
+  else
+    SlicePool::inst().run_parallel(nt, runner, nt);
+  for (int p = 0; p < n_pics; p++) {
+    PackJob& pj = pjs[p];
+    int pcm = pj.has_pcm.load();
+    results[p * 4 + 0] = pcm ? -1 : pj.maxnz.load();
+    results[p * 4 + 1] = pj.nexc.load();
+    results[p * 4 + 2] = pj.novf.load();
+  }
+  stats[0] = task_ns.load() / 1000;
+  stats[1] = peak.load();
   return 0;
 }

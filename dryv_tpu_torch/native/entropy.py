@@ -1,13 +1,18 @@
-# Copy of dryv_tpu/native/entropy.py.
+# Copy of dryv_tpu/native/entropy.py, but for what the port adds: the batch
+# entry decode_pack_batch and its output arenas, one per concurrent task
+# slot (``_SLOTS``), which the JAX package's copy does not have.
 """ctypes bindings for the native CABAC entropy stage.
 
 decode_picture_slices(slices, sps, pps) -> dense syntax arrays (raster
 coefficient blocks + inter motion syntax), covering I/SI/P/B CABAC slices.
 Output contract matches the Python SliceCoder path (verified in tests).
+decode_pack_batch decodes and packs a batch of intra pictures in one
+call, its slices spread over the host threads.
 """
 from __future__ import annotations
 
 import ctypes as ct
+import os
 
 import numpy as np
 
@@ -58,6 +63,19 @@ class Out(ct.Structure):
 
 _U8P = ct.POINTER(ct.c_uint8)
 _PP = ct.POINTER(_U8P)
+_I8P = ct.POINTER(ct.c_int8)
+_I16P = ct.POINTER(ct.c_int16)
+_I64P = ct.POINTER(ct.c_int64)
+
+
+class PicJob(ct.Structure):
+    """Mirrors PicJob in entropy.cc: one picture of a batch, its slices
+    and its slot's views of the wire blob."""
+    _fields_ = [("rbsp_all", _U8P), ("sp", ct.POINTER(SliceParams)),
+                ("dbctl", _P), ("bmp", _U8P), ("vals", _I8P), ("cnt", _P),
+                ("u8meta", _U8P), ("exc_idx", _P), ("exc_delta", _I16P),
+                ("ovf_idx", _P), ("ovf_rows", _I16P),
+                ("n_slices", ct.c_int32)]
 
 
 class InterParams(ct.Structure):
@@ -129,6 +147,11 @@ def lib():
                        _P, ct.POINTER(ct.c_uint8), _P,
                        ct.POINTER(ct.c_int16), ct.c_int32,
                        _P, ct.POINTER(ct.c_int16), ct.c_int32, _P]
+        bt = _lib.dt_decode_pack_batch
+        bt.restype = ct.c_int
+        bt.argtypes = [ct.POINTER(PicJob), ct.c_int32, PicParams,
+                       ct.c_int32, ct.c_int32, ct.c_int32, ct.POINTER(Out),
+                       ct.c_int32, ct.c_int32, _I64P, _I64P]
     return _lib
 
 
@@ -148,8 +171,14 @@ def decode_picture_islices(slice_datas, sps, pps, n_threads: int = 0,
 # output-buffer arena keyed by (n_mbs, n_slices): fresh np.zeros for every
 # frame costs ~10 ms of page faults at 1080p (45 MB of arrays); the decoder
 # overwrites/clears every slot a downstream consumer reads for the decoded
-# MB kind, so steady-state reuse is safe for the pipeline (opt-in).
+# MB kind, so steady-state reuse is safe for the pipeline (opt-in).  One
+# caller at a time: two threads decoding into it at once overwrite each
+# other's pictures.
 _ARENA: dict = {}
+# the batch entry's arenas, keyed as _ARENA: a list of (arrays, Out), one
+# per concurrent task slot, made once per geometry and reused by every
+# later batch; the native call hands each to one picture at a time
+_SLOTS: dict = {}
 
 
 def _alloc_out(n: int, ns: int, reuse: bool):
@@ -185,22 +214,40 @@ def _alloc_out(n: int, ns: int, reuse: bool):
 
 def _marshal(slice_datas, sps, pps, reuse):
     """Shared ctypes marshaling for the picture-level native entries."""
-    mb_w = sps.pic_width_in_mbs
-    mb_h = sps.frame_height_in_mbs
-    n = mb_w * mb_h
-    ns = len(slice_datas)
+    n = sps.pic_width_in_mbs * sps.frame_height_in_mbs
+    rbsp_all, buf, sp_arr = _slices(slice_datas)
+    out = _alloc_out(n, len(slice_datas), reuse)
+    return (rbsp_all, buf, sp_arr, len(slice_datas), _pic_params(sps, pps),
+            out, _out_struct(out))
 
+
+def _slices(slice_datas):
+    """The slices' rbsps joined, a pointer to them and their
+    SliceParams.  The native stage only reads the rbsp bytes (zero
+    copy): keep the joined bytes alive through the call."""
     rbsp_all = b"".join(s[0] for s in slice_datas)
-    sp_arr = (SliceParams * ns)()
+    sp_arr = (SliceParams * len(slice_datas))()
     off = 0
     for k, (rbsp, bitoff, first, qp, st, cinit, n0, n1) in \
             enumerate(slice_datas):
         sp_arr[k] = SliceParams(off, len(rbsp), bitoff, first, qp, st,
                                 cinit, n0, n1)
         off += len(rbsp)
+    buf = ct.cast(ct.c_char_p(rbsp_all), ct.POINTER(ct.c_uint8))
+    return rbsp_all, buf, sp_arr
 
-    out = _alloc_out(n, ns, reuse)
-    ostruct = Out(
+
+def _pic_params(sps, pps):
+    return PicParams(sps.pic_width_in_mbs, sps.frame_height_in_mbs,
+                     sps.chroma_array_type, pps.transform_8x8_mode_flag,
+                     8 + sps.bit_depth_luma_minus8,
+                     8 + sps.bit_depth_chroma_minus8,
+                     sps.direct_8x8_inference_flag)
+
+
+def _out_struct(out):
+    """The Out pointing at the arrays of `out`."""
+    return Out(
         _ptr(out["kind"]), _ptr(out["qp_y"]), _ptr(out["cbp"]),
         _ptr(out["i16_mode"]), _ptr(out["chroma_mode"]), _ptr(out["modes4"]),
         _ptr(out["modes8"]), _ptr(out["luma4"]), _ptr(out["luma8"]),
@@ -209,16 +256,6 @@ def _marshal(slice_datas, sps, pps, reuse):
         out["bin_count"].ctypes.data_as(ct.POINTER(ct.c_int64)),
         _ptr(out["mb_type_code"]), _ptr(out["sub_mb_type"]),
         _ptr(out["ref_idx"]), _ptr(out["mvd"]), _ptr(out["transform8"]))
-    pp = PicParams(mb_w, mb_h, sps.chroma_array_type,
-                   pps.transform_8x8_mode_flag,
-                   8 + sps.bit_depth_luma_minus8,
-                   8 + sps.bit_depth_chroma_minus8,
-                   sps.direct_8x8_inference_flag)
-
-    # zero-copy: the native stage only reads the rbsp bytes; keep the
-    # joined bytes object alive through the call via the returned tuple
-    buf = ct.cast(ct.c_char_p(rbsp_all), ct.POINTER(ct.c_uint8))
-    return rbsp_all, buf, sp_arr, ns, pp, out, ostruct
 
 
 def decode_picture_slices(slice_datas, sps, pps, n_threads: int = 0,
@@ -278,6 +315,78 @@ def decode_pack_picture_islices(slice_datas, sps, pps, W, dbctl, bmp, vals,
         ct.c_int32(len(ovf_idx)), _ptr(pack_out))
     assert rc == 0
     return out, int(pack_out[0]), int(pack_out[1]), int(pack_out[3])
+
+
+def decode_pack_batch(pics, sps, pps, W, views, n_threads: int = 0):
+    """Fused intra CABAC decode + device pack of a batch of pictures in
+    one native call: each slice of each picture is a task, and at most
+    `n_threads` tasks run at once, the calling thread included (0: at
+    most min(16, hardware threads)).  pics: [(slice_datas, dbctl)] with
+    slice_datas as decode_picture_islices and dbctl as
+    decode_pack_picture_islices; views: per picture the blob views
+    (bmp, vals, cnt, u8meta, exc_idx, exc_delta, ovf_idx, ovf_rows) as
+    decode_pack_picture_islices takes them, all at the caps (W,
+    len(exc_idx), len(ovf_idx)).  Each picture in flight decodes into
+    one of the ``_SLOTS`` arenas.  Returns (results, stats): results
+    [n_pics, 4] int64 holds each picture's (maxnz, n_exc, n_ovf, bins),
+    maxnz -1 flagging PCM; stats (task_us, peak) the tasks' summed wall
+    time in microseconds and the most tasks that ran at once."""
+    n = sps.pic_width_in_mbs * sps.frame_height_in_mbs
+    ecap, ovcap = len(views[0][4]), len(views[0][6])
+    keep = []
+    jobs = (PicJob * len(pics))()
+    for i, ((slice_datas, dbctl), v) in enumerate(zip(pics, views)):
+        _check_views(v, n, W, ecap, ovcap)
+        dbctl = np.ascontiguousarray(dbctl, np.int32)
+        if dbctl.shape != (len(slice_datas), 3):
+            raise ValueError(f"dbctl {dbctl.shape} for "
+                             f"{len(slice_datas)} slices")
+        rbsp_all, buf, sp_arr = _slices(
+            [(rbsp, bitoff, first, qp, 2, 0, 0, 0)
+             for rbsp, bitoff, first, qp in slice_datas])
+        keep += [rbsp_all, sp_arr, dbctl]
+        bmp, vals, cnt, u8meta, exc_idx, exc_delta, ovf_idx, ovf_rows = v
+        jobs[i] = PicJob(buf, sp_arr, _ptr(dbctl),
+                         bmp.ctypes.data_as(_U8P), vals.ctypes.data_as(_I8P),
+                         _ptr(cnt), u8meta.ctypes.data_as(_U8P),
+                         _ptr(exc_idx), exc_delta.ctypes.data_as(_I16P),
+                         _ptr(ovf_idx), ovf_rows.ctypes.data_as(_I16P),
+                         len(slice_datas))
+    ns = max(len(sd) for sd, _ in pics)
+    k = min(n_threads or min(16, os.cpu_count() or 1), len(pics))
+    slots = _SLOTS.setdefault((n, ns), [])
+    while len(slots) < k:
+        out = _alloc_out(n, ns, False)
+        slots.append((out, _out_struct(out)))
+    outs = (Out * k)(*(o for _, o in slots[:k]))
+    results = np.zeros((len(pics), 4), np.int64)
+    stats = np.zeros(2, np.int64)
+    rc = lib().dt_decode_pack_batch(
+        jobs, len(pics), _pic_params(sps, pps), W, ecap, ovcap, outs, k,
+        n_threads, results.ctypes.data_as(_I64P),
+        stats.ctypes.data_as(_I64P))
+    assert rc == 0
+    return results, (int(stats[0]), int(stats[1]))
+
+
+_VIEW_DTYPES = (np.uint8, np.int8, np.int32, np.uint8, np.int32, np.int16,
+                np.int32, np.int16)
+
+
+def _check_views(v, n, W, ecap, ovcap):
+    """A picture's blob views are C-contiguous, of the wire's dtypes, and
+    large enough for n MBs at the caps (W, ecap, ovcap)."""
+    bmp, vals, cnt, u8meta, exc_idx, exc_delta, ovf_idx, ovf_rows = v
+    ok = (all(a.dtype == dt and a.flags.c_contiguous
+              for a, dt in zip(v, _VIEW_DTYPES))
+          and bmp.shape[0] >= n and bmp.shape[1:] == (51,)
+          and vals.shape[0] >= n and vals.shape[1:] == (W,)
+          and cnt.shape[0] >= n and u8meta.shape[0] >= n
+          and u8meta.shape[1:] == (19,)
+          and exc_idx.shape == exc_delta.shape == (ecap,)
+          and ovf_idx.shape == (ovcap,) and ovf_rows.shape == (ovcap, 408))
+    if not ok:
+        raise ValueError("blob views do not fit the batch's caps")
 
 
 def reconstruct_islices(out: dict, sps, pps):

@@ -51,8 +51,12 @@ STAGES = ("split", "parse", "entropy", "redecode", "motion", "prep", "pack",
 # frames: pictures decoded; bins: CABAC bins of their slices (the native
 # entropy's bin_count); wire_bytes: bytes of each host blob shipped to
 # the card (a batch's whole blob, padded tail included); retries:
-# pictures whose entropy or pack ran again after a staging cap growth
-COUNTERS = ("frames", "bins", "wire_bytes", "retries")
+# pictures whose entropy or pack ran again after a staging cap growth;
+# par_pictures: pictures first decoded by a batched native call in which
+# more than one task ran at once; entropy_task_us: the summed wall time
+# of the batched native calls' tasks (re-decodes too), in microseconds
+COUNTERS = ("frames", "bins", "wire_bytes", "retries", "par_pictures",
+            "entropy_task_us")
 RANGE = "dryv."
 
 
@@ -99,13 +103,20 @@ class StageTimers:
         self.counters[name] += v
 
     def report(self) -> dict:
-        """Each stage's seconds and calls, the counters, and bins_per_s
-        (bins over the entropy stage's seconds) where both were taken."""
+        """Each stage's seconds and calls, the counters, bins_per_s (bins
+        over the entropy stage's seconds) where both were taken, and
+        entropy_parallelism (the native tasks' summed time over the
+        entropy and redecode stages' wall time: the threads that worked
+        at once, on average) where the tasks were timed."""
         out = {"stages": {k: {"total_s": round(v, 4), "calls": self.n[k]}
                           for k, v in self.t.items()},
                "counters": dict(self.counters)}
         if self.t.get("entropy") and self.counters.get("bins"):
             out["bins_per_s"] = int(self.counters["bins"] / self.t["entropy"])
+        wall = self.t.get("entropy", 0.0) + self.t.get("redecode", 0.0)
+        if wall and self.counters.get("entropy_task_us"):
+            out["entropy_parallelism"] = round(
+                self.counters["entropy_task_us"] / (wall * 1e6), 3)
         return out
 
 

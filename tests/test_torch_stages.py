@@ -76,11 +76,24 @@ def traced_decode(decode, monkeypatch):
         loads.append(xs[0].numel() * xs[0].element_size())
         return load(self, *xs)
 
+    # the keyed objects are held, so that no key is reused in a call
+    held = []
+
     def recorded(fn, key):
         def wrapper(slice_datas, *args, **kw):
             res = fn(slice_datas, *args, **kw)
             out = res[0] if isinstance(res, tuple) else res
+            held.append(slice_datas)
             decodes.append((key(slice_datas), int(out["bin_count"].sum())))
+            return res
+        return wrapper
+
+    def recorded_batch(fn):
+        def wrapper(pics, *args, **kw):
+            res = fn(pics, *args, **kw)
+            for (slice_datas, _), bins in zip(pics, res[0][:, 3]):
+                held.append(slice_datas)
+                decodes.append((id(slice_datas), int(bins)))
             return res
         return wrapper
 
@@ -95,6 +108,8 @@ def traced_decode(decode, monkeypatch):
                         recorded(entropy.decode_picture_slices, id))
     monkeypatch.setattr(entropy, "decode_pack_picture_islices",
                         recorded(entropy.decode_pack_picture_islices, id))
+    monkeypatch.setattr(entropy, "decode_pack_batch",
+                        recorded_batch(entropy.decode_pack_batch))
     monkeypatch.setattr(entropy, "pack_frame", counted_pack)
     outside = []
 
@@ -144,10 +159,13 @@ def intra():
 
 def test_stage_list_is_documented():
     """``utils.obs.STAGES`` is the list its comment documents, in order,
-    and ``COUNTERS`` the four counters."""
+    and ``COUNTERS`` the six counters, each named in their comment."""
     text = Path(obs.__file__).read_text()
     assert tuple(re.findall(r"^#   (\w+) ", text, re.M)) == obs.STAGES
-    assert obs.COUNTERS == ("frames", "bins", "wire_bytes", "retries")
+    assert obs.COUNTERS == ("frames", "bins", "wire_bytes", "retries",
+                            "par_pictures", "entropy_task_us")
+    for name in obs.COUNTERS:
+        assert re.search(rf"[#;] {name}:", text), name
 
 
 @pytest.mark.parametrize("path,want", [
@@ -175,15 +193,12 @@ def test_every_call_of_the_entries_runs_inside_a_stage(path, request):
 
 
 def _pictures(decodes):
-    """Bins per picture: consecutive entropy calls on one picture's
-    slices (a redecode after a growth) are one picture."""
-    out = []
-    for i, (key, bins) in enumerate(decodes):
-        if i and key == decodes[i - 1][0]:
-            assert bins == out[-1]
-            continue
-        out.append(bins)
-    return out
+    """Bins per picture: entropy calls on one picture's slices (a
+    redecode after a growth) are one picture."""
+    out = {}
+    for key, bins in decodes:
+        assert out.setdefault(key, bins) == bins
+    return list(out.values())
 
 
 def test_ipb_counters(ipb):
@@ -213,7 +228,11 @@ def test_intra_counters(intra):
         assert retried >= 1 and "redecode" in tm.names
         assert 1 <= tm.counters["retries"] <= retried
     # the staging lives for a call: the second grows as the first did
-    assert intra[0][0].counters == intra[1][0].counters
+    # (entropy_task_us, a wall time, is the one counter that differs)
+    first, second = ({k: v for k, v in run[0].counters.items()
+                      if k != "entropy_task_us"} for run in intra)
+    assert min(run[0].counters["entropy_task_us"] for run in intra) > 0
+    assert first == second
 
 
 def test_staging_started_large_enough_retries_nothing():
@@ -272,6 +291,22 @@ def test_decode_under_the_profiler_has_a_range_per_stage():
         if e.name.startswith(obs.RANGE):
             names[e.name[len(obs.RANGE):]] += 1
     assert dict(names) == dict(tm.n)
+
+
+def test_report_has_entropy_parallelism():
+    """entropy_parallelism: the native tasks' summed time over the
+    entropy and redecode stages' wall time."""
+    tm = obs.StageTimers()
+    tm.t["entropy"], tm.t["redecode"] = 0.3, 0.1
+    tm.count("entropy_task_us", 2_000_000)
+    tm.count("par_pictures", 16)
+    r = tm.report()
+    assert r["entropy_parallelism"] == 5.0
+    assert r["counters"]["par_pictures"] == 16
+    tm = obs.StageTimers()
+    with tm.stage("entropy"):
+        pass
+    assert "entropy_parallelism" not in tm.report()
 
 
 def test_report_has_stages_counters_and_bins_per_s():
