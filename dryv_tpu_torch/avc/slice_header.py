@@ -380,5 +380,13 @@ class SliceHeader:
     def slice_qp_y(self, pps: PPS) -> int:
         return 26 + pps.pic_init_qp_minus26 + self.slice_qp_delta
 
+    def data_bit_offset(self, pps: PPS) -> int:
+        """The RBSP bit at which the slice data starts: CABAC data at
+        the next byte (cabac_alignment_one_bit), CAVLC data at the bit
+        the header ends at."""
+        if pps.entropy_coding_mode_flag:
+            return (self.header_bit_len + 7) & ~7
+        return self.header_bit_len
+
     def mbaff_frame_flag(self, sps: SPS) -> int:
         return int(sps.mb_adaptive_frame_field_flag and not self.field_pic_flag)

@@ -7,9 +7,9 @@ Usage: python -m dryv_tpu_torch <file.mp4> [-d] [-o OUT] [--frames N]
        [--stats] [--trace DIR] [--device cuda|cpu] [--all-frames]
 
 --stats prints the decode's host stages (seconds and calls), its
-counters (frames, CABAC bins, wire bytes, staging retries, pictures of
-parallel batches, the native tasks' microseconds), bins/s and the
-batched entropy's parallelism as JSON.  --trace DIR records the decode
+counters (frames, CABAC bins, CAVLC slice-data bits, wire bytes, staging
+retries, pictures of parallel batches, the native tasks' microseconds),
+bins/s, CAVLC bits/s and the batched entropy's parallelism as JSON.  --trace DIR records the decode
 under torch.profiler (host ops, and the card's kernels and copies where
 CUDA is present) and writes
 DIR/trace.json, a Chrome trace; it takes the stage timers as --stats

@@ -106,7 +106,7 @@ class SyntaxDecoder:
                 sgmap = map_units_to_sgmap(pps, sps,
                                            h.slice_group_change_cycle)
             if pps.entropy_coding_mode_flag:
-                entropy_start = (h.header_bit_len + 7) & ~7  # cabac align
+                entropy_start = h.data_bit_offset(pps)
                 init_mode = (0 if h.slice_type.is_intra
                              else 1 + h.cabac_init_idc)
                 eng = CabacDecoder(rbsp, entropy_start, h.slice_qp_y(pps),
@@ -117,7 +117,7 @@ class SyntaxDecoder:
                 from .bitio import BitReader
                 from .cavlc import CavlcSliceCoder
                 r = BitReader(rbsp)
-                r.skip(h.header_bit_len)
+                r.skip(h.data_bit_offset(pps))
                 coder = CavlcSliceCoder(r, sps, pps, h, mbs, sid,
                                         encoding=False)
             coder.decode_slice_data(sgmap)

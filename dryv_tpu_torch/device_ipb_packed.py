@@ -3,7 +3,7 @@
 Counterpart of ``dryv_tpu/device_ipb_packed.py``.  Per picture:
 
 1. The C++ slice-parallel entropy stage (the port's ``native.entropy``,
-   full I/P/B CABAC syntax).
+   full I/P/B CABAC or CAVLC syntax; the JAX path takes CABAC only).
 2. C++ motion derivation in motion-only mode (``native`` recon.cc):
    MV prediction, skip and direct modes are neighbour-chained integer
    recurrences, host work like CABAC, exporting a dense per-4x4 motion
@@ -199,8 +199,10 @@ class _Meta:
 
 
 def _out_of_scope(sps, pps, h) -> bool:
-    """A slice the packed path hands to the native decoder (the fallback
-    set of ``dryv_tpu/device_ipb_packed.py`` :347-358)."""
+    """A slice the packed path hands to the native decoder: the fallback
+    set of ``dryv_tpu/device_ipb_packed.py`` :347-358 less CAVLC, which
+    the JAX path hands over and this path decodes (the native CAVLC
+    entropy, then the same wire, motion and step as CABAC)."""
     from .avc.slice_header import SliceType
 
     return bool(sps.chroma_array_type != 1
@@ -211,7 +213,6 @@ def _out_of_scope(sps, pps, h) -> bool:
                 or sps.qpprime_y_zero_transform_bypass_flag
                 or pps.slice_groups is not None
                 or pps.constrained_intra_pred_flag
-                or not pps.entropy_coding_mode_flag
                 or h.slice_type in (SliceType.SP, SliceType.SI)
                 or pps.pic_scaling_matrix_present_flag
                 or sps.seq_scaling_matrix_present_flag)
@@ -226,20 +227,22 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
     Returns cropped DecodedFrames in display order (epoch, then POC); with
     device_out, (y, cb, cr, poc, sps) tuples of uncropped device planes.
     `device` is explicit: "cuda" (the default) launches the kernels and
-    raises when CUDA is absent; "cpu" runs their plain versions.  A
-    stream with a slice outside the device scope (the fallback set of
-    the JAX path: non-4:2:0, field or MBAFF, high bit depth, lossless,
-    FMO, constrained intra, CAVLC, SP/SI, scaling matrices) or a PCM MB
-    decodes whole on the native C++ decoder (``native.full``), counted in
-    ``decode_annexb_device_packed.host_calls``.  `timers` (a
+    raises when CUDA is absent; "cpu" runs their plain versions.  CABAC
+    and CAVLC streams both take the device path.  A stream with a slice
+    outside the device scope (non-4:2:0, field or MBAFF, high bit depth,
+    lossless, FMO, constrained intra, SP/SI, scaling matrices: the
+    fallback set of the JAX path, which also hands over CAVLC) or a PCM
+    MB decodes whole on the native C++ decoder (``native.full``), counted
+    in ``decode_annexb_device_packed.host_calls``.  `timers` (a
     ``utils.obs.StageTimers``, or anything with its ``stage`` and
     ``count``) takes the call's host work in stages, none inside
-    another: split, parse, entropy, motion (derivation and WP tables),
-    alloc (the pinned blobs), wait (on a slot's copy, and the last
-    drain), pack, hold, ship, dispatch (enqueueing
+    another: split, parse, entropy (CABAC) or cavlc, motion (derivation
+    and WP tables), alloc (the pinned blobs), wait (on a slot's copy,
+    and the last drain), pack, hold, ship, dispatch (enqueueing
     ``PackedPictureDecoder``), dpb, harvest and fallback
-    (``utils.obs.STAGES``); and the counters frames, bins, wire_bytes
-    and retries (``utils.obs.COUNTERS``).  With `graph`
+    (``utils.obs.STAGES``); and the counters frames, bins (CABAC),
+    cavlc_bits (CAVLC), wire_bytes and retries
+    (``utils.obs.COUNTERS``).  With `graph`
     (the default) each picture replays its key's captured step
     (``STEPS``): ship copies the blob and the reference planes into the
     step's static inputs, dispatch replays it and clones its planes;
@@ -332,7 +335,7 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                     headers = None
                     break
                 headers.append(h)
-                slice_datas.append((rbsp, (h.header_bit_len + 7) & ~7,
+                slice_datas.append((rbsp, h.data_bit_offset(pps),
                                     h.first_mb_in_slice, h.slice_qp_y(pps),
                                     int(h.slice_type), h.cabac_init_idc,
                                     h.num_ref_idx_l0_active_minus1,
@@ -351,11 +354,16 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                     npad = round_up(n, BLK)
         if headers is None:
             return to_host()
-        with tm.stage("entropy"):
+        cabac = pps.entropy_coding_mode_flag
+        with tm.stage("entropy" if cabac else "cavlc"):
             out = decode_picture_slices(slice_datas, sps, pps,
                                         n_threads=n_threads, reuse=True)
             tm.count("frames", 1)
-            tm.count("bins", int(out["bin_count"].sum()))
+            if cabac:
+                tm.count("bins", int(out["bin_count"].sum()))
+            else:
+                tm.count("cavlc_bits", sum(len(sd[0]) * 8 - sd[1]
+                                           for sd in slice_datas))
             pcm = bool((out["kind"][:n] == 3).any())
         if pcm:                                     # PCM -> native restart
             return to_host()

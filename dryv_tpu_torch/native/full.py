@@ -90,11 +90,7 @@ def decode_annexb_native(stream: bytes, max_frames: int = 0,
                     or sps.seq_scaling_matrix_present_flag):
                 return decode_annexb_scalar(stream, max_frames)
             headers.append(h)
-            # CABAC slice data is byte-aligned after the header; CAVLC
-            # starts at the next bit
-            bitoff = ((h.header_bit_len + 7) & ~7
-                      if pps.entropy_coding_mode_flag else h.header_bit_len)
-            slice_datas.append((rbsp, bitoff,
+            slice_datas.append((rbsp, h.data_bit_offset(pps),
                                 h.first_mb_in_slice, h.slice_qp_y(pps),
                                 int(st), h.cabac_init_idc,
                                 h.num_ref_idx_l0_active_minus1,

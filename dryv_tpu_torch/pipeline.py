@@ -66,9 +66,8 @@ def _pictures(stream: bytes):
             sps = sd.sps_map[pps.seq_parameter_set_id]
             h = SliceHeader.parse(nal.rbsp, nal, sps, pps)
             headers.append(h)
-            bitoff = ((h.header_bit_len + 7) & ~7
-                      if pps.entropy_coding_mode_flag else h.header_bit_len)
-            slice_datas.append((nal.rbsp, bitoff, h.first_mb_in_slice,
+            slice_datas.append((nal.rbsp, h.data_bit_offset(pps),
+                                h.first_mb_in_slice,
                                 h.slice_qp_y(pps)))
         yield slice_datas, headers, sps, pps
 

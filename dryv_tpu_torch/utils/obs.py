@@ -29,7 +29,9 @@ from collections import defaultdict
 #   split     NAL split, parameter sets, access units (I/P/B; the batched
 #             entry does these inside parse)
 #   parse     slice headers, POC and reference lists
-#   entropy   the C++ entropy decode (batched: fused with the pack)
+#   entropy   the C++ CABAC entropy decode (batched: fused with the pack)
+#   cavlc     the C++ CAVLC entropy decode of a picture (I/P/B), in place
+#             of entropy
 #   redecode  a picture decoded again after a staging cap growth
 #   motion    motion derivation and weighted-prediction tables
 #   prep      a batched picture's deblock controls
@@ -45,18 +47,20 @@ from collections import defaultdict
 #   harvest   the planes handed back (host frames: the card-to-host copy)
 #   dpb       reference marking, stored motion fields, display order
 #   fallback  a stream that left the path, on the decoder it went to
-STAGES = ("split", "parse", "entropy", "redecode", "motion", "prep", "pack",
-          "pad", "alloc", "wait", "hold", "ship", "dispatch", "harvest",
-          "dpb", "fallback")
+STAGES = ("split", "parse", "entropy", "cavlc", "redecode", "motion", "prep",
+          "pack", "pad", "alloc", "wait", "hold", "ship", "dispatch",
+          "harvest", "dpb", "fallback")
 # frames: pictures decoded; bins: CABAC bins of their slices (the native
-# entropy's bin_count); wire_bytes: bytes of each host blob shipped to
+# entropy's bin_count); cavlc_bits: the slice-data bits of CAVLC slices
+# handed to the native decode, from the end of each slice header to the
+# end of its RBSP; wire_bytes: bytes of each host blob shipped to
 # the card (a batch's whole blob, padded tail included); retries:
 # pictures whose entropy or pack ran again after a staging cap growth;
 # par_pictures: pictures first decoded by a batched native call in which
 # more than one task ran at once; entropy_task_us: the summed wall time
 # of the batched native calls' tasks (re-decodes too), in microseconds
-COUNTERS = ("frames", "bins", "wire_bytes", "retries", "par_pictures",
-            "entropy_task_us")
+COUNTERS = ("frames", "bins", "cavlc_bits", "wire_bytes", "retries",
+            "par_pictures", "entropy_task_us")
 RANGE = "dryv."
 
 
@@ -104,7 +108,9 @@ class StageTimers:
 
     def report(self) -> dict:
         """Each stage's seconds and calls, the counters, bins_per_s (bins
-        over the entropy stage's seconds) where both were taken, and
+        over the entropy stage's seconds) and cavlc_bits_per_s
+        (cavlc_bits over the cavlc stage's seconds) where both were
+        taken, and
         entropy_parallelism (the native tasks' summed time over the
         entropy and redecode stages' wall time: the threads that worked
         at once, on average) where the tasks were timed."""
@@ -113,6 +119,9 @@ class StageTimers:
                "counters": dict(self.counters)}
         if self.t.get("entropy") and self.counters.get("bins"):
             out["bins_per_s"] = int(self.counters["bins"] / self.t["entropy"])
+        if self.t.get("cavlc") and self.counters.get("cavlc_bits"):
+            out["cavlc_bits_per_s"] = int(self.counters["cavlc_bits"]
+                                          / self.t["cavlc"])
         wall = self.t.get("entropy", 0.0) + self.t.get("redecode", 0.0)
         if wall and self.counters.get("entropy_task_us"):
             out["entropy_parallelism"] = round(

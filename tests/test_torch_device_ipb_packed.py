@@ -115,11 +115,12 @@ def test_packed_ipb_bench_fixture(pictures):
         np.testing.assert_array_equal(f.cr, g[f"f{i}_r"])
 
 
-# the corpus streams the device path takes; the others leave for the
-# native decoder before any picture reaches the device (4:2:2, 4:4:4,
-# CAVLC, constrained intra, scaling matrices, monochrome, lossless, MBAFF)
+# the corpus streams the device path takes (CAVLC among them:
+# cavlc_ipb); the others leave for the native decoder before any picture
+# reaches the device (4:2:2, 4:4:4, constrained intra, scaling matrices,
+# monochrome, lossless, MBAFF)
 DEVICE_STREAMS = {
-    "chroma_qp", "deblock_22", "defaults_qp28", "fake_interlaced",
+    "cavlc_ipb", "chroma_qp", "deblock_22", "defaults_qp28", "fake_interlaced",
     "intra_only", "intra_refresh", "keyint3", "nal_hrd_cbr", "no8x8",
     "no_deblock", "open_gop", "qp51", "refs8_bpyr", "scenecut",
     "slice_max_size", "slices4", "slow_qp24", "veryfast_crf", "vui_sar",

@@ -26,6 +26,7 @@ CONFIGS = Path(__file__).resolve().parent.parent / "avcbench" / "tests" \
     / "configs"
 IPB = (CONFIGS / "tiny-ipb" / "gop_s1.264").read_bytes()
 INTRA = (CONFIGS / "tiny-intra" / "idr16_s3.264").read_bytes()
+LIVE = (CONFIGS / "tiny-live" / "live_slices4_s4.264").read_bytes()
 
 # the functions whose own frames the stages must cover, and what they may
 # call outside every stage: the stage context managers themselves, the
@@ -144,6 +145,17 @@ def ipb():
 
 
 @pytest.fixture(scope="module")
+def live():
+    """A CAVLC stream (IDR then P, 4 slices a picture) on the I/P/B
+    path."""
+    with pytest.MonkeyPatch.context() as mp:
+        return traced_decode(
+            lambda tm: device_ipb_packed.decode_annexb_device_packed(
+                LIVE, n_threads=1, device_out=True, device="cpu", timers=tm),
+            mp)
+
+
+@pytest.fixture(scope="module")
 def intra():
     """Two calls on the stream of 16 IDR pictures twice over (two
     batches of 16): the staging lives for a call, so each grows it."""
@@ -159,11 +171,11 @@ def intra():
 
 def test_stage_list_is_documented():
     """``utils.obs.STAGES`` is the list its comment documents, in order,
-    and ``COUNTERS`` the six counters, each named in their comment."""
+    and ``COUNTERS`` the seven counters, each named in their comment."""
     text = Path(obs.__file__).read_text()
     assert tuple(re.findall(r"^#   (\w+) ", text, re.M)) == obs.STAGES
-    assert obs.COUNTERS == ("frames", "bins", "wire_bytes", "retries",
-                            "par_pictures", "entropy_task_us")
+    assert obs.COUNTERS == ("frames", "bins", "cavlc_bits", "wire_bytes",
+                            "retries", "par_pictures", "entropy_task_us")
     for name in obs.COUNTERS:
         assert re.search(rf"[#;] {name}:", text), name
 
@@ -173,21 +185,23 @@ def test_stage_list_is_documented():
              "hold", "ship", "dispatch", "dpb"}),
     ("intra", {"parse", "alloc", "prep", "entropy", "redecode", "wait",
                "pad", "hold", "ship", "dispatch", "harvest"}),
+    ("live", {"split", "parse", "cavlc", "motion", "alloc", "pack", "wait",
+              "hold", "ship", "dispatch", "dpb"}),
 ])
 def test_stage_names(path, want, request):
     runs = request.getfixturevalue(path)
-    tm = (runs if path == "ipb" else runs[0])[0]
+    tm = (runs[0] if path == "intra" else runs)[0]
     assert set(tm.names) == want
     assert want <= set(obs.STAGES)
 
 
-@pytest.mark.parametrize("path", ["ipb", "intra"])
+@pytest.mark.parametrize("path", ["ipb", "intra", "live"])
 def test_every_call_of_the_entries_runs_inside_a_stage(path, request):
     """No stage nests in another (the Recorder fails on one), and each
     call the entries make from their own frames outside every stage is
     a stage's own context manager or a helper that opens stages."""
     runs = request.getfixturevalue(path)
-    for run in ([runs] if path == "ipb" else runs):
+    for run in (runs if path == "intra" else [runs]):
         assert set(run[2]) <= MAY_CALL_OUTSIDE, set(run[2]) - \
             MAY_CALL_OUTSIDE
 
@@ -214,6 +228,29 @@ def test_ipb_counters(ipb):
         per_pic[f] += 1
     assert tm.counters["retries"] == sum(c > 1 for c in per_pic.values())
     assert tm.counters["retries"] >= 1     # the caps start at 32/1024/256
+
+
+def test_live_counters(live):
+    """On CAVLC pictures ``cavlc_bits`` is the slice data handed to the
+    native decode (each slice's RBSP from the end of its header) and
+    ``bins`` is not counted."""
+    tm, frames, _, loads, decodes, _ = live
+    assert len(frames) == 8 and tm.counters["frames"] == 8
+    assert tm.counters["bins"] == 0 and all(b == 0 for _, b in decodes)
+    from dryv_tpu_torch.avc import split_annexb
+    from dryv_tpu_torch.avc.slice_header import SliceHeader
+    from dryv_tpu_torch.decoder import SyntaxDecoder
+
+    sd = SyntaxDecoder()
+    bits = 0
+    for nal in sd.feed_parameter_sets(list(split_annexb(LIVE))):
+        if int(nal.type) in (1, 5):
+            pps = next(iter(sd.pps_map.values()))
+            sps = sd.sps_map[pps.seq_parameter_set_id]
+            h = SliceHeader.parse(nal.rbsp, nal, sps, pps)
+            bits += len(nal.rbsp) * 8 - h.header_bit_len
+    assert tm.counters["cavlc_bits"] == bits > 0
+    assert tm.counters["wire_bytes"] == sum(loads) > 0 and len(loads) == 8
 
 
 def test_intra_counters(intra):
@@ -321,3 +358,18 @@ def test_report_has_stages_counters_and_bins_per_s():
     assert r["counters"] == {"bins": 1000, "frames": 2}
     assert 0 < r["bins_per_s"] <= 100000
     assert set(obs.StageTimers().report()) == {"stages", "counters"}
+
+
+def test_report_has_cavlc_bits_per_s():
+    """cavlc_bits_per_s: the CAVLC slice-data bits over the cavlc stage's
+    seconds, beside bins_per_s where a decode had both."""
+    tm = obs.StageTimers()
+    tm.t["cavlc"], tm.t["entropy"] = 0.5, 0.25
+    tm.count("cavlc_bits", 1000)
+    tm.count("bins", 1000)
+    r = tm.report()
+    assert r["cavlc_bits_per_s"] == 2000 and r["bins_per_s"] == 4000
+    tm = obs.StageTimers()
+    with tm.stage("cavlc"):
+        pass
+    assert "cavlc_bits_per_s" not in tm.report()
