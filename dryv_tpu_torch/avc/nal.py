@@ -1,4 +1,5 @@
-# Copy of dryv_tpu/avc/nal.py.
+# Copy of dryv_tpu/avc/nal.py, but NalUnit.parse takes a span of its
+# buffer, so split_annexb and split_avcc copy each payload once.
 """NAL unit layer (spec 7.3.1 / 7.4.1).
 
 Mirrors reference src/video/sample/nal.rs (NALUnitIter, NALUnitType, SEI)
@@ -42,12 +43,17 @@ class NalUnit:
     payload: bytes  # EBSP (with emulation prevention), not including header byte
 
     @classmethod
-    def parse(cls, data: bytes) -> "NalUnit":
-        hdr = data[0]
+    def parse(cls, data: bytes, start: int = 0,
+              end: int | None = None) -> "NalUnit":
+        """The NAL unit in data[start:end], its payload the one copy."""
+        end = len(data) if end is None else end
+        if start >= end:
+            raise IndexError("empty NAL unit")
+        hdr = data[start]
         if hdr & 0x80:
             raise ValueError("forbidden_zero_bit set")
         return cls(ref_idc=(hdr >> 5) & 3, type=NalUnitType(hdr & 0x1F),
-                   payload=data[1:])
+                   payload=data[start + 1:end])
 
     @property
     def rbsp(self) -> bytes:
@@ -69,7 +75,7 @@ def split_avcc(sample: bytes, nal_length_size: int):
         i += nal_length_size
         if size == 0 or i + size > n:
             break
-        yield NalUnit.parse(sample[i:i + size])
+        yield NalUnit.parse(sample, i, i + size)
         i += size
 
 
@@ -89,7 +95,7 @@ def split_annexb(stream: bytes):
                 e -= 1
         else:
             e = n
-        yield NalUnit.parse(stream[s:e])
+        yield NalUnit.parse(stream, s, e)
 
 
 def to_annexb(nals) -> bytes:

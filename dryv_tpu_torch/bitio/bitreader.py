@@ -1,4 +1,6 @@
-# Copy of dryv_tpu/bitio/bitreader.py.
+# Copy of dryv_tpu/bitio/bitreader.py, but for strip_emulation_prevention,
+# which finds each 00 00 03 with bytes.find and joins the runs between
+# them: the same bytes out as the original's byte loop, at C speed.
 """MSB-first bit reader over RBSP bytes.
 
 Capability parity with the reference BitStream (src/byte/bit.rs:6-168):
@@ -12,22 +14,22 @@ from __future__ import annotations
 
 
 def strip_emulation_prevention(data: bytes) -> bytes:
-    """Remove emulation_prevention_three_byte: 00 00 03 -> 00 00 (spec 7.4.1.1)."""
-    if b"\x00\x00\x03" not in data:
+    """Remove emulation_prevention_three_byte: 00 00 03 -> 00 00 (spec 7.4.1.1).
+
+    The search resumes after each removed 03, so the zero count restarts
+    there, as the spec's byte-by-byte removal does; `data` itself comes
+    back when it holds no 00 00 03."""
+    p = data.find(b"\x00\x00\x03")
+    if p < 0:
         return data
-    out = bytearray()
-    i, n = 0, len(data)
-    zeros = 0
-    while i < n:
-        b = data[i]
-        if zeros >= 2 and b == 3:
-            zeros = 0
-            i += 1
-            continue
-        zeros = zeros + 1 if b == 0 else 0
-        out.append(b)
-        i += 1
-    return bytes(out)
+    runs = []
+    i = 0
+    while p >= 0:
+        runs.append(data[i:p + 2])
+        i = p + 3
+        p = data.find(b"\x00\x00\x03", i)
+    runs.append(data[i:])
+    return b"".join(runs)
 
 
 class BitReader:

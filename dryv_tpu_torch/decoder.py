@@ -142,8 +142,11 @@ def group_access_units(nals):
 
 
 def _first_mb_is_zero(nal) -> bool:
-    from .bitio import BitReader
-    r = BitReader(nal.rbsp)
+    # first_mb_in_slice is the RBSP's first ue(v), at most 63 bits; the
+    # payload's first 32 bytes strip to at least 22, a prefix of the RBSP,
+    # so the slice's whole RBSP is not made here
+    from .bitio import BitReader, strip_emulation_prevention
+    r = BitReader(strip_emulation_prevention(nal.payload[:32]))
     return r.ue() == 0
 
 

@@ -241,7 +241,7 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
     and the last drain), pack, hold, ship, dispatch (enqueueing
     ``PackedPictureDecoder``), dpb, harvest and fallback
     (``utils.obs.STAGES``); and the counters frames, bins (CABAC),
-    cavlc_bits (CAVLC), wire_bytes and retries
+    cavlc_bits (CAVLC), wire_bytes, retries and epb_bytes
     (``utils.obs.COUNTERS``).  With `graph`
     (the default) each picture replays its key's captured step
     (``STEPS``): ship copies the blob and the reference planes into the
@@ -325,6 +325,7 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
             sps = pps = None
             for nal in pic_nals:
                 rbsp = nal.rbsp
+                tm.count("epb_bytes", len(nal.payload) - len(rbsp))
                 h0p = SliceHeader.parse(
                     rbsp, nal, next(iter(sd.sps_map.values())),
                     next(iter(sd.pps_map.values())))

@@ -49,7 +49,10 @@ U8_STRIDE = 19      # kind qp_y i16_mode chroma_mode | modes4 8 (nibbles)
                     # | dis offa+12 offb+12   (entropy.cc kMetaStride)
 
 
-def _parse_pictures(stream: bytes):
+def _parse_pictures(stream: bytes, timers=None):
+    """(slice_datas, headers) per picture, and the last sps and pps; each
+    slice's RBSP made once, its removed emulation-prevention bytes
+    counted as ``epb_bytes`` into `timers` where given."""
     from .avc import split_annexb
     from .avc.slice_header import SliceHeader
     from .decoder import SyntaxDecoder, group_access_units
@@ -62,11 +65,13 @@ def _parse_pictures(stream: bytes):
     # header once; multi-PPS streams probe with an arbitrary set first
     # to learn the pic_parameter_set_id, then re-parse with the right one
     single = len(sd.pps_map) == 1 and len(sd.sps_map) == 1
+    epb = 0
     for pic_nals in group_access_units(rest):
         headers = []
         slice_datas = []
         for nal in pic_nals:
             rbsp = nal.rbsp
+            epb += len(nal.payload) - len(rbsp)
             probe_pps = next(iter(sd.pps_map.values()))
             probe_sps = next(iter(sd.sps_map.values()))
             h0 = SliceHeader.parse(rbsp, nal, probe_sps, probe_pps)
@@ -78,6 +83,8 @@ def _parse_pictures(stream: bytes):
                                 h.first_mb_in_slice,
                                 h.slice_qp_y(pps)))
         pics.append((slice_datas, headers))
+    if timers is not None:
+        timers.count("epb_bytes", epb)
     return pics, sps, pps
 
 
@@ -495,14 +502,15 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     prep, entropy, redecode, alloc, pad), pack (a PCM batch's rows),
     hold, ship, dispatch, harvest, wait (the last drain) and fallback
     (``utils.obs.STAGES``); and the counters frames, bins, wire_bytes,
-    retries, par_pictures and entropy_task_us (``utils.obs.COUNTERS``)."""
+    retries, par_pictures, entropy_task_us and epb_bytes
+    (``utils.obs.COUNTERS``)."""
     tm = timers if timers is not None else StageTimers()
     with tm.stage("parse"):
         from .decoder import DecodedFrame
 
         dev = resolve_device(device)
         cuda = dev.type == "cuda"
-        pics, sps, pps = _parse_pictures(stream)
+        pics, sps, pps = _parse_pictures(stream, tm)
         inside = bool(pics) and all(_gop_supported(sps, pps, h)
                                     for _, h in pics)
     if not inside:

@@ -60,13 +60,14 @@ def _pictures(stream: bytes):
         slice_datas = []
         headers = []
         for nal in pic_nals:
-            h0 = SliceHeader.parse(nal.rbsp, nal, next(iter(
+            rbsp = nal.rbsp
+            h0 = SliceHeader.parse(rbsp, nal, next(iter(
                 sd.sps_map.values())), next(iter(sd.pps_map.values())))
             pps = sd.pps_map[h0.pic_parameter_set_id]
             sps = sd.sps_map[pps.seq_parameter_set_id]
-            h = SliceHeader.parse(nal.rbsp, nal, sps, pps)
+            h = SliceHeader.parse(rbsp, nal, sps, pps)
             headers.append(h)
-            slice_datas.append((nal.rbsp, h.data_bit_offset(pps),
+            slice_datas.append((rbsp, h.data_bit_offset(pps),
                                 h.first_mb_in_slice,
                                 h.slice_qp_y(pps)))
         yield slice_datas, headers, sps, pps

@@ -58,9 +58,11 @@ STAGES = ("split", "parse", "entropy", "cavlc", "redecode", "motion", "prep",
 # pictures whose entropy or pack ran again after a staging cap growth;
 # par_pictures: pictures first decoded by a batched native call in which
 # more than one task ran at once; entropy_task_us: the summed wall time
-# of the batched native calls' tasks (re-decodes too), in microseconds
+# of the batched native calls' tasks (re-decodes too), in microseconds;
+# epb_bytes: the emulation-prevention bytes (00 00 03 -> 00 00) removed
+# from the slice NALs' payloads as their RBSPs were made
 COUNTERS = ("frames", "bins", "cavlc_bits", "wire_bytes", "retries",
-            "par_pictures", "entropy_task_us")
+            "par_pictures", "entropy_task_us", "epb_bytes")
 RANGE = "dryv."
 
 

@@ -185,5 +185,6 @@ def test_trace_writes_the_stages_as_profiler_ranges(backend, ipb_mp4,
         assert stats["counters"]["frames"] == 3
         assert stats["counters"]["bins"] > 0 and stats["bins_per_s"] > 0
         assert stats["counters"]["wire_bytes"] > 0
+        assert stats["counters"]["epb_bytes"] >= 0
     else:
         assert ranges == {"demux", "parse", "fallback"}

@@ -171,11 +171,12 @@ def intra():
 
 def test_stage_list_is_documented():
     """``utils.obs.STAGES`` is the list its comment documents, in order,
-    and ``COUNTERS`` the seven counters, each named in their comment."""
+    and ``COUNTERS`` the eight counters, each named in their comment."""
     text = Path(obs.__file__).read_text()
     assert tuple(re.findall(r"^#   (\w+) ", text, re.M)) == obs.STAGES
     assert obs.COUNTERS == ("frames", "bins", "cavlc_bits", "wire_bytes",
-                            "retries", "par_pictures", "entropy_task_us")
+                            "retries", "par_pictures", "entropy_task_us",
+                            "epb_bytes")
     for name in obs.COUNTERS:
         assert re.search(rf"[#;] {name}:", text), name
 
