@@ -91,12 +91,6 @@ or a stored golden:
   ``--multichip`` runs only the build and that
   phase.
 
-Before the census it runs the port's benchmark in this process
-(``dryv_tpu_torch.bench.main``, what ``python -m dryv_tpu_torch.bench``
-runs, every phase live) and fails unless the one line it prints parses,
-is bit-exact and carries every detail key of ``BENCH_r05.json``; the
-end-to-end batched timing uses the benchmark's ``e2e_decode``.
-
 Each decode path runs both ways: eager (``graph=False``, every op
 enqueued from the host) and graphed (the default: one captured CUDA
 graph replayed per batch or picture, ``dryv_tpu_torch.graphs``), the two
@@ -1802,9 +1796,8 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    from dryv_tpu_torch import _build, bench, device_ipb_packed, \
-        gop_pipeline, graphs, parallel, pipeline
-    from dryv_tpu_torch.bench import e2e_decode
+    from dryv_tpu_torch import _build, device_ipb_packed, gop_pipeline, \
+        graphs, parallel, pipeline
     from dryv_tpu_torch.decoder import DecodedFrame
     from dryv_tpu_torch.device_ipb_packed import (
         PackedPictureDecoder, decode_annexb_device_packed)
@@ -2478,10 +2471,12 @@ def main():
     ref_y = torch.from_numpy(np.stack([r[0] for r in refs[0]])).to(dev)
 
     def batched(graph, timers=None, stream=big):
-        # the benchmark's end-to-end decode: one implementation times the
-        # headline there and here
-        return e2e_decode(stream, dev, nthreads, graph=graph, timers=timers,
-                          gop=F)
+        # the batched entry, planes left on the card, finished there
+        out = decode_annexb_gop_pipelined(
+            stream, gop=F, n_threads=nthreads, device=dev, stacked_out=True,
+            timers=timers, graph=graph)
+        torch.cuda.synchronize()
+        return out
 
     runs = {}
     for graph in (False, True):
@@ -3393,36 +3388,6 @@ def main():
         card_segments += segs
         card_entries += entries
         host_side.append(multi_host)
-
-    # ---- phase 11c: the benchmark, in this process --------------------
-    # python -m dryv_tpu_torch.bench's main(), every phase live.  Its
-    # I/P/B phase reads the launch counters around its first decode,
-    # which must capture its steps: the I/P/B steps made above are
-    # released first (the census below makes them again, untraced)
-    phase("11c bench")
-    while device_ipb_packed.STEPS.steps:
-        device_ipb_packed.STEPS.steps.popitem()[1].release()
-    out, err = io.StringIO(), io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out), \
-                contextlib.redirect_stderr(err):
-            bench.main()
-    finally:
-        # the log lines (first-call launches, pools), also of a failing run
-        for line in err.getvalue().splitlines():
-            print(f"bench: {line}  [{card}]")
-    lines = out.getvalue().strip().splitlines()
-    if len(lines) != 1:
-        fail(f"the benchmark printed {len(lines)} lines, not one")
-    res = json.loads(lines[0])
-    want_keys = json.load(open("BENCH_r05.json"))["parsed"]["detail"]
-    missing = [k for k in want_keys if k not in res["detail"]]
-    if missing or res["detail"]["bit_exact"] is not True:
-        fail(f"the benchmark's line lacks {missing} or is not bit-exact")
-    if res["metric"] != bench.METRIC or not isinstance(res["value"], float):
-        fail("the benchmark's line names another metric or no value")
-    print(f"bench line (python -m dryv_tpu_torch.bench, in process): "
-          f"{lines[0]}  [{card}]")
 
     # ---- phase 12: the census, the run's one device trace --------------
     # the per-call kernels of phase 3, then each graphed path's streams

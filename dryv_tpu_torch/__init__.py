@@ -15,9 +15,12 @@ by default (``device="cpu"`` runs the plain versions):
 - ``pipeline.decode_annexb_fast`` / ``decode_annexb_tpu``: the
   per-picture intra path (CAVLC, custom scaling matrices);
 - ``device_ipb_packed.decode_annexb_device_packed``: the I/P/B path;
+- ``wire``: the packed wire of the batched and I/P/B paths (layout,
+  host staging, device decode);
 - ``parallel``: the sharded decode over a mesh of devices;
-- ``bench``: the measurement entry point (``python -m
-  dryv_tpu_torch.bench``); ``video`` and ``cli``: MP4 in, YUV out.
+- ``video`` and ``cli``: MP4 in, YUV out.
+
+The benchmark is ``python3 -m avcbench`` at the root of the repository.
 
 The counterparts of the root ``__graft_entry__.py``'s two functions are
 ``pipeline.entry`` (the per-picture step at 4x4 MBs and its example

@@ -8,10 +8,11 @@ Counterpart of ``dryv_tpu/device_ipb_packed.py``.  Per picture:
    MV prediction, skip and direct modes are neighbour-chained integer
    recurrences, host work like CABAC, exporting a dense per-4x4 motion
    field.
-3. ONE pinned host blob (``_IPB_SPEC``): the bitmap coefficient wire of
-   the intra pipeline extended with the motion field (int16 vectors, int8
-   stack slots and reference indices) and the picture's weighted-
-   prediction tables, shipped in one non-blocking copy.
+3. ONE pinned host blob (``wire``, at F = 1 with its motion segments):
+   the bitmap coefficient wire of the intra pipeline extended with the
+   motion field (int16 vectors, int8 stack slots and reference indices)
+   and the picture's weighted-prediction tables, shipped in one
+   non-blocking copy.
 4. ``PackedPictureDecoder`` on the device: densify (B1, F = 1), stage A
    (B5), motion compensation over the reference stack that stays on the
    device (B4, ``kernels.inter.mc_frame``, which resolves the WP tables
@@ -24,9 +25,9 @@ Counterpart of ``dryv_tpu/device_ipb_packed.py``.  Per picture:
    launches.
 
 Reconstructed planes stay on the device as reference pictures; output is
-drained in one batched copy.  ``_IPB_SPEC``, ``_shapes``, ``_layout`` and
-``_alloc`` are copies of the JAX module's (``_alloc`` pins its blob),
-held equal to them by ``tests/test_torch_helpers.py``.
+drained in one batched copy.  The JAX module's wire helpers (``_IPB_SPEC``,
+``_layout``, ``_alloc``) have their counterpart in ``wire``, held equal
+to them by ``tests/test_torch_helpers.py``.
 """
 from __future__ import annotations
 
@@ -37,9 +38,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from . import wire
 from .coeffs import KIND_I4, KIND_I8, KIND_PCM
 from .device import resolve_device
-from .gop_pipeline import dbctl, dense_rows, split_blob, wire_syntax
 from .graphs import StepCache
 from .kernels.deblock import deblock, deblock_params
 from .kernels.geometry import BLK, round_up
@@ -49,48 +50,26 @@ from .kernels.wavefront import intra_recon, recon_inputs
 from .tables import decoder_tables
 from .utils.obs import StageTimers, staged
 
-_IPB_SPEC = (("bmp", np.uint8, "npad,51"),
-             ("vals", np.int8, "npad,W"),
-             ("exc_idx", np.int32, "ecap"),
-             ("exc_delta", np.int16, "ecap"),
-             ("ovf_idx", np.int32, "ovcap"),
-             ("ovf_rows", np.int16, "ovcap,408"),
-             ("u8", np.uint8, "n,19"),
-             ("mv", np.int16, "n4,2,2"),
-             ("rsri", np.int8, "n4,4"),
-             ("wp_expl", np.int16, "2,32,6"),
-             ("wp_imp", np.int16, "256,2"),
-             ("misc", np.int32, "4"))
+# the caps (W, ecap, ovcap) a call's staging starts at, and the quanta
+# its growth rounds to
+START_CAPS = (32, 1024, 256)
 
 
-def _shapes(npad, n, n4, W, ecap, ovcap):
-    env = dict(npad=npad, n=n, n4=n4, W=W, ecap=ecap, ovcap=ovcap)
-    out = {}
-    for name, dt, spec in _IPB_SPEC:
-        shape = tuple(env.get(tok) or int(tok) for tok in spec.split(","))
-        out[name] = (shape, dt)
-    return out
-
-
-def _layout(npad, n, n4, W, ecap, ovcap):
-    offs = {}
-    t = 0
-    for name, (shape, dt) in _shapes(npad, n, n4, W, ecap, ovcap).items():
-        t = (t + 63) & ~63
-        offs[name] = (t, shape, dt)
-        t += int(np.prod(shape)) * np.dtype(dt).itemsize
-    return offs, t
-
-
-def _alloc(npad, n, n4, W, ecap, ovcap, pin=False):
-    """The blob (numpy, backed by a torch tensor in pinned memory when
-    `pin`) and its numpy views by segment name."""
-    offs, total = _layout(npad, n, n4, W, ecap, ovcap)
-    blob = torch.zeros(total, dtype=torch.uint8, pin_memory=pin).numpy()
-    views = {name: np.ndarray(shape, dt, buffer=blob, offset=off)
-             for name, (off, shape, dt) in offs.items()}
-    views["ovf_idx"][:] = npad
-    return blob, views
+def _needs(caps, maxnz, nexc, novf, npad):
+    """None, or the caps a picture packed at `caps` with the counts
+    (maxnz, nexc, novf) asks for: a dense one (``wire.dense``) grows W to
+    its per-MB max, rounded to 32 and at most 256, and counts over ecap
+    or ovcap grow them, rounded to 1024 and 256.  Unlike the batched
+    rule (``gop_pipeline._needs``), all three grow from the one pack's
+    counts, also those taken at a W that grows with them."""
+    W, ecap, ovcap = caps
+    qw, qe, qo = START_CAPS
+    grow_w = wire.dense(maxnz, novf, W, npad)
+    if nexc <= ecap and novf <= ovcap and not grow_w:
+        return None
+    return (min(wire.round_cap(maxnz, qw), wire.W_MAX) if grow_w else W,
+            wire.round_cap(nexc, qe) if nexc > ecap else ecap,
+            wire.round_cap(novf, qo) if novf > ovcap else ovcap)
 
 
 class PackedPictureDecoder(torch.nn.Module):
@@ -114,21 +93,21 @@ class PackedPictureDecoder(torch.nn.Module):
 
     def forward(self, blob, W, ecap, ovcap, refs, nlists, wp_mode,
                 deblocked, chroma_off0, chroma_off1):
-        """blob: uint8 [total] on the device, laid out by ``_layout``;
+        """blob: uint8 [total] on the device, laid out by ``wire.layout``
+        at F = 1 with the motion segments;
         refs: (y [R,H,W], cb, cr) uint8 reference stacks in slot order
         (None for an all-intra picture); nlists 0 (all intra), 1 (P) or 2
         (B); wp_mode 0/1/2 as ``native.full.wp_tables`` gives it."""
         mb_w, mb_h, n, npad = self.mb_w, self.mb_h, self.n, self.npad
         n4 = 16 * n
         tabs = self.tables
-        g = split_blob(blob, _layout(npad, n, n4, W, ecap, ovcap)[0])
-        wire = {k: g[k][None] for k in ("bmp", "vals", "exc_idx",
-                                        "exc_delta", "ovf_idx", "ovf_rows")}
-        lanes = dense_rows(wire, npad, n)                  # [1, n, 408]
-        u8 = g["u8"][None]
+        g = wire.split(blob, wire.layout(1, npad, n, W, ecap, ovcap,
+                                         n4)[0])
+        lanes = wire.dense_rows(g, npad, n)                # [1, n, 408]
+        u8 = g["u8"]
         with record_function("wire_syntax"):
-            s = wire_syntax(lanes, u8, mb_w, mb_h, chroma_off0,
-                            chroma_off1, tabs)
+            s = wire.wire_syntax(lanes, u8, mb_w, mb_h, chroma_off0,
+                                 chroma_off1, tabs)
             # bit 6 of the kind byte is an inter MB's transform-8x8 flag
             kind_raw = u8[..., 0].to(torch.int32)
             t8 = (kind_raw >> 6) & 1
@@ -167,7 +146,7 @@ class PackedPictureDecoder(torch.nn.Module):
         if deblocked:
             with record_function("deblock_params"):
                 prm = deblock_params(
-                    kind, s["qp_y"], s["sid"], *dbctl(u8), mb_w, mb_h,
+                    kind, s["qp_y"], s["sid"], *wire.dbctl(u8), mb_w, mb_h,
                     chroma_off0, chroma_off1, tabs, t8, nz4[0], mv[None],
                     rsri[None])
             y, cb, cr = deblock(prm, y, cb, cr, mb_w, mb_h)
@@ -261,7 +240,6 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                                      pack_frame)
         from .native.full import (_build_inter_params, _u8p,
                                   decode_annexb_native, wp_tables)
-        from .pipeline import _dbctl_of
 
         dev = resolve_device(device)
         cuda = dev.type == "cuda"
@@ -274,25 +252,19 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
         frames = []
         order = []
         epoch = -1
-        W, ecap, ovcap = 32, 1024, 256
-        bufs = None           # two pinned blobs, made at the first picture
-        slot_ev = [None, None]
+        staging = None        # two pinned blobs, made at the first picture
         model = None
         npad = n = n4 = 0
         cur = 0
 
     def to_host():
-        drain()
+        with tm.stage("wait"):
+            if staging is not None:
+                staging.drain()
         decode_annexb_device_packed.host_calls += 1
         with tm.stage("fallback"):
             return decode_annexb_native(stream, max_frames,
                                         n_threads=n_threads)
-
-    def drain():
-        with tm.stage("wait"):
-            for ev in slot_ev:
-                if ev is not None:
-                    ev.synchronize()
 
     def get_model():
         nonlocal model
@@ -300,23 +272,15 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
             model = PackedPictureDecoder(mb_w, mb_h, dev)
         return model
 
-    def pack(v):
-        """The picture's wire into the blob views `v`: None, or the caps
-        (W, ecap, ovcap) it needs, larger than the blob's."""
-        v["exc_idx"][:] = 0
-        v["exc_delta"][:] = 0
-        v["ovf_idx"][:] = npad
+    def pack(again):
+        """The picture's wire into the staging's slot cur (`again`: after
+        a growth): None, or the caps it needs (``_needs``)."""
+        staging.clear(cur, [0], again)
         maxnz, nexc, novf = pack_frame(
-            out, n, W, ctl, v["bmp"], v["vals"], np.zeros(npad, np.int32),
-            v["u8"], v["exc_idx"], v["exc_delta"], v["ovf_idx"],
-            v["ovf_rows"], n_threads=n_threads, inter=True)
+            out, n, staging.caps[0], ctl, *staging.views(cur, 0),
+            n_threads=n_threads, inter=True)
         assert maxnz >= 0   # PCM handled above
-        dense = maxnz > W and W < 256 and novf * 816 > npad * 32
-        if nexc <= ecap and novf <= ovcap and not dense:
-            return None
-        return (min(max(32, (maxnz + 31) & ~31), 256) if dense else W,
-                max(1024, (nexc + 1023) & ~1023) if nexc > ecap else ecap,
-                max(256, (novf + 255) & ~255) if novf > ovcap else ovcap)
+        return _needs(staging.caps, maxnz, nexc, novf, npad)
 
     for pic_nals in access_units:
         with tm.stage("parse"):
@@ -409,31 +373,24 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                                    {p.frame_idx for p in l1})
                 wp_mode, expl, dy, dc, imp = wp_tables(h0, pps, poc, l0, l1)
 
-        if bufs is None:
+        if staging is None:
             with tm.stage("alloc"):
-                bufs = [_alloc(npad, n, n4, W, ecap, ovcap, pin=cuda)
-                        for _ in range(2)]
+                staging = wire.Staging(1, npad, n, START_CAPS, n4=n4,
+                                       pin=cuda)
         # ---- fill the wire blob: a slot is refilled only after the
         # device copy that read it two pictures ago has completed
-        if slot_ev[cur] is not None:
-            with tm.stage("wait"):
-                slot_ev[cur].synchronize()
+        staging.wait(cur, tm)
         with tm.stage("pack"):
-            blob, v = bufs[cur]
-            ctl = _dbctl_of(headers)
-            caps = pack(v)
+            ctl = wire.dbctl_of(headers)
+            caps = pack(False)
         retried = caps is not None
         while caps is not None:
-            W, ecap, ovcap = caps
-            drain()
-            with tm.stage("alloc"):
-                bufs = [_alloc(npad, n, n4, W, ecap, ovcap, pin=cuda)
-                        for _ in range(2)]
+            staging.grow(caps, tm)
             with tm.stage("pack"):
-                blob, v = bufs[cur]
-                caps = pack(v)
+                caps = pack(True)
         with tm.stage("pack"):
             tm.count("retries", int(retried))
+            v = staging.bufs[cur]
             if is_inter_pic:
                 v["mv"][:, 0] = exp["mv0"].reshape(n4, 2)
                 v["mv"][:, 1] = exp["mv1"].reshape(n4, 2)
@@ -468,7 +425,8 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                       2 if any(h.slice_type == SliceType.B for h in headers)
                       else 1)
             c0 = pps.chroma_qp_index_offset
-            host = torch.from_numpy(blob)
+            W, ecap, ovcap = staging.caps
+            host = staging.blob(cur)
             refs = [[planes[k][p] for k in used_keys] for p in range(3)] \
                 if used_keys else []
             key = (dev, mb_w, mb_h, deblocked, wp_mode, c0, off1, W, ecap,
@@ -480,15 +438,13 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                     c0, off1), [host, *refs], dev) if graph
                 else contextlib.nullcontext()) as step:
             with tm.stage("ship"):
-                tm.count("wire_bytes", blob.nbytes)
+                tm.count("wire_bytes", host.numel())
                 if graph:
                     step.load(host, *refs)
                 else:
                     dblob = host.to(dev, non_blocking=True) if cuda else host
                     refs = tuple(torch.stack(r) for r in refs) or None
-                if cuda:
-                    slot_ev[cur] = torch.cuda.Event()
-                    slot_ev[cur].record(torch.cuda.current_stream(dev))
+                staging.shipped(cur, dev)
             with tm.stage("dispatch"):
                 if graph:
                     y, cb, cr = step()
@@ -520,14 +476,15 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                                        key=lambda t: t[0])]
         if max_frames:
             frames = frames[:max_frames]
+    # the staging blobs are freed on return: let their copies drain
+    with tm.stage("wait"):
+        if staging is not None:
+            staging.drain()
     if device_out or not frames:
-        drain()
         return frames
     with tm.stage("harvest"):
         ys, cbs, crs = (torch.stack([f[p] for f in frames]).cpu().numpy()
                         for p in range(3))
-    drain()
-    with tm.stage("harvest"):
         return [DecodedFrame(ys[i], cbs[i], crs[i], f[3]).crop(f[4])
                 for i, f in enumerate(frames)]
 

@@ -18,8 +18,8 @@ batch k+1.
 Counterpart of ``dryv_tpu/gop_pipeline.py``.  That module imports jax
 (through ``dryv_tpu.pipeline``), so the numpy helpers this one needs are
 copies, held equal to their originals by ``tests/test_torch_helpers.py``:
-``_parse_pictures``, ``_gop_supported``, ``_BLOB_SPEC``, ``_blob_layout``,
-``_alloc_blob``, ``_round_cap``, ``I16_STRIDE``, ``U8_STRIDE``.
+``_parse_pictures`` and ``_gop_supported`` here, the wire's layout in
+``wire``.
 """
 from __future__ import annotations
 
@@ -30,23 +30,17 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from . import wire
 from .coeffs import KIND_I8
-
 from .device import resolve_device
 from .graphs import StepCache
 from .kernels.deblock import deblock, deblock_params
-from .kernels.densify import densify
-from .kernels.geometry import BLK, L, round_up
+from .kernels.geometry import BLK, round_up
 from .kernels.transform import stage_a
 from .kernels.wavefront import intra_recon, recon_inputs
-from .pipeline import _dbctl_of, decode_annexb_fast
-from .tables import chroma_qp, decoder_tables
+from .pipeline import decode_annexb_fast
+from .tables import decoder_tables
 from .utils.obs import StageTimers, staged
-
-I16_STRIDE = 408    # luma_lv 256 | luma_dc 16 | chroma_dc 8 | chroma_ac 128
-U8_STRIDE = 19      # kind qp_y i16_mode chroma_mode | modes4 8 (nibbles)
-                    # | modes8 2 (nibbles) | sid_lo sid_hi
-                    # | dis offa+12 offb+12   (entropy.cc kMetaStride)
 
 
 def _parse_pictures(stream: bytes, timers=None):
@@ -100,226 +94,94 @@ def _gop_supported(sps, pps, headers) -> bool:
             and not pps.pic_scaling_matrix_present_flag)
 
 
-# --- single-blob staging ----------------------------------------------------
-# All seven wire arrays live in ONE contiguous uint8 blob per batch: one
-# host->device copy, and dtype views of the device copy give the segments
-# back (offsets are 64-byte aligned).
-
-_BLOB_SPEC = (("bmp", np.uint8, lambda F, npad, n, W, e, o: (F, npad, 51)),
-              ("vals", np.int8, lambda F, npad, n, W, e, o: (F, npad, W)),
-              ("exc_idx", np.int32, lambda F, npad, n, W, e, o: (F, e)),
-              ("exc_delta", np.int16, lambda F, npad, n, W, e, o: (F, e)),
-              ("ovf_idx", np.int32, lambda F, npad, n, W, e, o: (F, o)),
-              ("ovf_rows", np.int16,
-               lambda F, npad, n, W, e, o: (F, o, I16_STRIDE)),
-              ("u8", np.uint8, lambda F, npad, n, W, e, o: (F, n, U8_STRIDE)))
-
-_TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
-                np.dtype(np.int16): torch.int16,
-                np.dtype(np.int32): torch.int32}
+# the caps (W, ecap, ovcap) a call's staging starts at, and the quanta
+# its growth rounds to
+START_CAPS = (32, 256, 64)
 
 
-def _blob_layout(F, npad, n, W, ecap, ovcap):
-    offs = {}
-    t = 0
-    for name, dt, shape_of in _BLOB_SPEC:
-        t = (t + 63) & ~63
-        shape = shape_of(F, npad, n, W, ecap, ovcap)
-        offs[name] = (t, shape, dt)
-        t += int(np.prod(shape)) * np.dtype(dt).itemsize
-    return offs, t
+def _needs(caps, npad, todo, res):
+    """The caps that the pictures `todo`, decoded at `caps` with results
+    `res` (rows of maxnz, n_exc, n_ovf, bins), ask for, and the pictures
+    to decode again at them.  A dense picture (``wire.dense``) grows
+    the sticky vals stride W to its true per-MB max, rounded to 32 and
+    at most 256; once W grows, every picture whose max exceeded the old
+    W packs otherwise and is decoded again, and its exc/ovf counts at
+    the old W are not needs.  The others' exception and overflow counts
+    grow ecap and ovcap (rounded to 256 and 64) to the largest need.
+    Unlike the I/P/B rule (``device_ipb_packed._needs``), counts taken
+    at a W that then grows are dropped, not kept."""
+    W, ecap, ovcap = caps
+    qw, qe, qo = START_CAPS
+    maxnz, nexc, novf = (res[:, j] for j in range(3))
+    grow_w = wire.dense(maxnz, novf, W, npad)
+    W2 = max([W] + [min(wire.round_cap(m, qw), wire.W_MAX)
+                    for m in maxnz[grow_w]])
+    stale = (maxnz > W) & (W2 > W)
+    over_e = (nexc > ecap) & ~stale
+    over_o = (novf > ovcap) & ~stale
+    ecap2 = max([ecap] + [wire.round_cap(e, qe) for e in nexc[over_e]])
+    ovcap2 = max([ovcap] + [wire.round_cap(o, qo) for o in novf[over_o]])
+    redo = [i for i, r in zip(todo, stale | over_e | over_o) if r]
+    return (W2, ecap2, ovcap2), redo
 
 
-def _alloc_blob(F, npad, n, W, ecap, ovcap, pin=False):
-    """The blob (numpy, backed by a torch tensor in pinned memory when
-    `pin`) and its numpy views by segment name."""
-    offs, total = _blob_layout(F, npad, n, W, ecap, ovcap)
-    blob = torch.zeros(total, dtype=torch.uint8, pin_memory=pin).numpy()
-    views = {name: np.ndarray(shape, dt, buffer=blob, offset=off)
-             for name, (off, shape, dt) in offs.items()}
-    views["ovf_idx"][:] = npad
-    return blob, views
+def pack_batch(st, k, batch, sps, pps, n_threads, tm):
+    """Entropy-decode and pack a batch of (slice_datas, headers) into
+    slot k of the ``wire.Staging`` `st`, growing its caps as the
+    pictures need (``_needs``), and pad the tail by replicating the last
+    picture.  Returns the blob as a uint8 tensor, or None if a picture
+    holds PCM MBs, which the wire does not carry.  One native call
+    (``decode_pack_batch``) decodes the whole batch on up to `n_threads`
+    host threads at the current caps; if pictures need more, the caps
+    grow once to the batch's largest need and one more call decodes
+    those pictures again, until none exceeds them.  The blob is then the
+    same as a decode of every picture at the final caps.  `tm` takes the
+    work in the stages wait, prep, entropy (the first call), redecode (a
+    later one), alloc and pad, and counts frames, bins, retries
+    (pictures decoded again), par_pictures (the batch's pictures, if
+    more than one task ran at once in its first call) and
+    entropy_task_us (the native tasks' summed wall time, in every
+    call)."""
+    st.wait(k, tm)
+    with tm.stage("prep"):
+        ctls = [wire.dbctl_of(headers) for _, headers in batch]
+        todo = list(range(len(batch)))
+        retried = set()
+    stage = "entropy"
+    while True:
+        with tm.stage(stage):
+            from .native.entropy import decode_pack_batch
 
-
-def _round_cap(x, q):
-    return max(q, (int(x) + q - 1) & ~(q - 1))
-
-
-class BlobStaging:
-    """The batched pipeline's host staging: `slots` blobs (pinned when
-    `pin`) of the packed wire for batches of F pictures, which the fused
-    C++ entropy + pack stage fills straight from the entropy arena.  A
-    slot is refilled only after the device copy that read it has
-    completed (its event in ``ev``, which the caller records).  The vals
-    stride W starts at 32 and grows (sticky, like the exc/ovf caps) when
-    the stream is dense enough that the 816-byte-per-MB overflow channel
-    would dominate the wire; ``caps`` is (W, ecap, ovcap) now."""
-
-    def __init__(self, F, npad, n, pin=False, slots=2):
-        self.F, self.npad, self.n, self.pin = F, npad, n, pin
-        self.caps = (32, 256, 64)
-        self.ev = [None] * slots
-        self.bufs = [self._alloc() for _ in range(slots)]
-
-    def _alloc(self):
-        blob, views = _alloc_blob(self.F, self.npad, self.n, *self.caps,
-                                  pin=self.pin)
-        views["cnt"] = np.zeros((self.F, self.npad), np.int32)
-        views["_blob"] = blob
-        return views
-
-    def drain(self):
-        for ev in self.ev:
-            if ev is not None:
-                ev.synchronize()
-
-    def _grow(self, caps, tm):
-        """New blobs at `caps`, holding what the old ones held."""
-        with tm.stage("wait"):
-            self.drain()
-        with tm.stage("alloc"):
-            W, ecap, ovcap = self.caps
-            self.caps = caps
-            for k, old in enumerate(self.bufs):
-                nv = self._alloc()
-                nv["bmp"][:] = old["bmp"]
-                nv["vals"][:, :, :W] = old["vals"]
-                nv["exc_idx"][:, :ecap] = old["exc_idx"]
-                nv["exc_delta"][:, :ecap] = old["exc_delta"]
-                nv["ovf_idx"][:, :ovcap] = old["ovf_idx"]
-                nv["ovf_rows"][:, :ovcap] = old["ovf_rows"]
-                nv["u8"][:] = old["u8"]
-                nv["cnt"] = old["cnt"]
-                self.bufs[k] = nv
-
-    def _needs(self, todo, res):
-        """The caps that the pictures `todo`, decoded at ``caps`` with
-        results `res` (rows of maxnz, n_exc, n_ovf, bins), ask for, and
-        the pictures to decode again at them.  A dense picture (most of
-        its MBs' bytes in 816-byte overflow rows) grows the sticky vals
-        stride W to its true per-MB max, rounded to 32 and at most 256;
-        once W grows, every picture whose max exceeded the old W packs
-        otherwise and is decoded again, and its exc/ovf counts at the
-        old W are not needs.  The others' exception and overflow counts
-        grow ecap and ovcap (rounded to 256 and 64) to the largest
-        need."""
-        W, ecap, ovcap = self.caps
-        maxnz, nexc, novf = (res[:, j] for j in range(3))
-        dense = (maxnz > W) & (W < 256) & (novf * 816 > self.npad * 32)
-        W2 = max([W] + [min(_round_cap(m, 32), 256) for m in maxnz[dense]])
-        stale = (maxnz > W) & (W2 > W)
-        over_e = (nexc > ecap) & ~stale
-        over_o = (novf > ovcap) & ~stale
-        ecap2 = max([ecap] + [_round_cap(e, 256) for e in nexc[over_e]])
-        ovcap2 = max([ovcap] + [_round_cap(o, 64) for o in novf[over_o]])
-        redo = [i for i, r in zip(todo, stale | over_e | over_o) if r]
-        return (W2, ecap2, ovcap2), redo
-
-    def pack(self, k, batch, sps, pps, n_threads, tm):
-        """Entropy-decode and pack a batch of (slice_datas, headers) into
-        slot k, growing the caps as its pictures need, and pad the tail
-        by replicating the last picture.  Returns the blob as a uint8
-        tensor, or None if a picture holds PCM MBs, which the wire does
-        not carry.  One native call (``decode_pack_batch``) decodes the
-        whole batch on up to `n_threads` host threads at the current
-        caps; if pictures need more, the caps grow once to the batch's
-        largest need and one more call decodes those pictures again,
-        until none exceeds them.  The blob is then the same as a decode
-        of every picture at the final caps.  `tm` takes the work in the
-        stages wait, prep, entropy (the first call), redecode (a later
-        one), alloc and pad, and counts frames, bins, retries (pictures
-        decoded again), par_pictures (the batch's pictures, if more than
-        one task ran at once in its first call) and entropy_task_us (the
-        native tasks' summed wall time, in every call)."""
-        if self.ev[k] is not None:
-            with tm.stage("wait"):
-                self.ev[k].synchronize()
-        with tm.stage("prep"):
-            ctls = [_dbctl_of(headers) for _, headers in batch]
-            todo = list(range(len(batch)))
-            retried = set()
-        stage = "entropy"
-        while True:
-            with tm.stage(stage):
-                from .native.entropy import decode_pack_batch
-
-                b = self.bufs[k]
-                if stage == "redecode":
-                    # rows of the earlier decode past its new n_ovf
-                    b["ovf_rows"][todo] = 0
-                b["exc_idx"][todo] = 0
-                b["exc_delta"][todo] = 0
-                b["ovf_idx"][todo] = self.npad
-                res, (task_us, peak) = decode_pack_batch(
-                    [(batch[i][0], ctls[i]) for i in todo], sps, pps,
-                    self.caps[0],
-                    [tuple(b[key][i] for key in _WIRE_VIEWS) for i in todo],
-                    n_threads=n_threads)
-                tm.count("entropy_task_us", task_us)
-                if stage == "entropy":
-                    tm.count("frames", len(batch))
-                    tm.count("bins", int(res[:, 3].sum()))
-                    if peak > 1:
-                        tm.count("par_pictures", len(batch))
-                pcm = bool((res[:, 0] < 0).any())
-                caps, redo = (self.caps, []) if pcm else \
-                    self._needs(todo, res)
-                tm.count("retries", len(set(redo) - retried))
-                retried.update(redo)
-            if pcm:
-                return None
-            if not redo:
-                break
-            self._grow(caps, tm)
-            todo = redo
-            stage = "redecode"
-        with tm.stage("pad"):
-            last = len(batch) - 1
-            for i in range(len(batch), self.F):
-                for key in ("bmp", "cnt", "u8", "vals", "exc_idx",
-                            "exc_delta", "ovf_idx", "ovf_rows"):
-                    b[key][i] = b[key][last]
-            return torch.from_numpy(b["_blob"])
-
-
-# a picture's slot views, in the order the native pack takes them
-_WIRE_VIEWS = ("bmp", "vals", "cnt", "u8", "exc_idx", "exc_delta", "ovf_idx",
-               "ovf_rows")
-
-
-def split_blob(blob, offs):
-    """Typed views of a device blob's segments; offs maps each name to
-    (offset, shape, numpy dtype), as ``_blob_layout`` returns them."""
-    seg = {}
-    for name, (off, shape, dt) in offs.items():
-        nb = int(np.prod(shape)) * np.dtype(dt).itemsize
-        seg[name] = blob[off:off + nb].view(_TORCH_DTYPE[np.dtype(dt)]) \
-            .view(shape)
-    return seg
-
-
-def dense_rows(seg, npad, n):
-    """Wire segments [F, ...] -> dense coefficient rows i16 [F, n, 408]:
-    densify (B1), then the |v| > 127 corrections and the heavy MBs'
-    whole rows."""
-    F = seg["bmp"].shape[0]
-    dev = seg["bmp"].device
-    # one spare row at the end takes the overflow pad slots
-    dense = torch.empty((F * npad + 1, L), dtype=torch.int16, device=dev)
-    densify(seg["bmp"], seg["vals"], out=dense[:F * npad].view(F, npad, L))
-    with record_function("dense_rows_fixes"):
-        # |v| > 127 corrections: an accumulating add (pads add 0 at 0)
-        fbase = torch.arange(F, device=dev)[:, None]
-        dense.view(-1).index_add_(
-            0, (seg["exc_idx"].long() + fbase * (npad * L)).reshape(-1),
-            seg["exc_delta"].reshape(-1))
-        # heavy MBs ship whole rows; pad slots (index npad) go to the
-        # spare
-        oi = seg["ovf_idx"].long()
-        rows = torch.where(oi < npad, oi + fbase * npad, F * npad)
-        dense.index_copy_(0, rows.reshape(-1),
-                          seg["ovf_rows"].reshape(-1, L))
-    return dense[:F * npad].view(F, npad, L)[:, :n]
+            st.clear(k, todo, again=stage == "redecode")
+            res, (task_us, peak) = decode_pack_batch(
+                [(batch[i][0], ctls[i]) for i in todo], sps, pps,
+                st.caps[0], [st.views(k, i) for i in todo],
+                n_threads=n_threads)
+            tm.count("entropy_task_us", task_us)
+            if stage == "entropy":
+                tm.count("frames", len(batch))
+                tm.count("bins", int(res[:, 3].sum()))
+                if peak > 1:
+                    tm.count("par_pictures", len(batch))
+            pcm = bool((res[:, 0] < 0).any())
+            caps, redo = (st.caps, []) if pcm else \
+                _needs(st.caps, st.npad, todo, res)
+            tm.count("retries", len(set(redo) - retried))
+            retried.update(redo)
+        if pcm:
+            return None
+        if not redo:
+            break
+        st.grow(caps, tm)
+        todo = redo
+        stage = "redecode"
+    with tm.stage("pad"):
+        b = st.bufs[k]
+        last = len(batch) - 1
+        for i in range(len(batch), st.F):
+            for key in wire.NATIVE_VIEWS:
+                b[key][i] = b[key][last]
+        return st.blob(k)
 
 
 class PackedGopDecoder(torch.nn.Module):
@@ -346,10 +208,11 @@ class PackedGopDecoder(torch.nn.Module):
         return dict(self.named_buffers())
 
     def forward(self, blob, W, ecap, ovcap):
-        """blob: uint8 [total] on the device, laid out by _blob_layout."""
-        seg = split_blob(blob, _blob_layout(self.F, self.npad, self.n, W,
-                                            ecap, ovcap)[0])
-        return self.decode_rows(dense_rows(seg, self.npad, self.n),
+        """blob: uint8 [total] on the device, laid out by
+        ``wire.layout``."""
+        seg = wire.split(blob, wire.layout(self.F, self.npad, self.n, W,
+                                           ecap, ovcap)[0])
+        return self.decode_rows(wire.dense_rows(seg, self.npad, self.n),
                                 seg["u8"])
 
     def decode_rows(self, i16, u8, pcm_y=None, pcm_c=None):
@@ -358,7 +221,8 @@ class PackedGopDecoder(torch.nn.Module):
         mb_w, mb_h = self.mb_w, self.mb_h
         tabs = self.tables
         with record_function("wire_syntax"):
-            s = wire_syntax(i16, u8, mb_w, mb_h, self.c0, self.c1, tabs)
+            s = wire.wire_syntax(i16, u8, mb_w, mb_h, self.c0, self.c1,
+                                 tabs)
         if pcm_y is not None:
             s["pcm_y"], s["pcm_c"] = pcm_y, pcm_c
         with record_function("stage_a"):
@@ -370,8 +234,8 @@ class PackedGopDecoder(torch.nn.Module):
             return y, cb, cr
         with record_function("deblock_params"):
             prm = deblock_params(s["kind"], s["qp_y"], s["sid"],
-                                 *dbctl(u8), mb_w, mb_h, self.c0, self.c1,
-                                 tabs)
+                                 *wire.dbctl(u8), mb_w, mb_h, self.c0,
+                                 self.c1, tabs)
         return deblock(prm, y, cb, cr, mb_w, mb_h)
 
 
@@ -381,52 +245,6 @@ class PackedGopDecoder(torch.nn.Module):
 STEPS = StepCache(max_keys=8)
 
 
-def wire_syntax(i16, u8, mb_w, mb_h, c0, c1, tabs):
-    """The syntax dict stage A and B2 read, from dense coefficient rows
-    i16 [F, n, 408] and the wire's per-MB bytes u8 [F, n, 19] (layout of
-    ``U8_STRIDE``): kind (the byte as shipped, int32), qp_y/qp_cb/qp_cr,
-    sid, the intra modes, the coefficient fields and avail_a..d (a
-    neighbour is available iff it exists and shares the slice)."""
-    F, n = u8.shape[:2]
-    qp_y = u8[..., 1].to(torch.int32)
-    sid = u8[..., 14].to(torch.int32) | (u8[..., 15].to(torch.int32) << 8)
-    sid2 = sid.view(F, mb_h, mb_w)
-    # shifted-neighbour slice-id grids (-9 = outside the picture)
-    nbs = [torch.full_like(sid2, -9) for _ in range(4)]
-    nbs[0][:, :, 1:] = sid2[:, :, :-1]
-    nbs[1][:, 1:, :] = sid2[:, :-1, :]
-    nbs[2][:, 1:, :-1] = sid2[:, :-1, 1:]
-    nbs[3][:, 1:, 1:] = sid2[:, :-1, :-1]
-    m4n = u8[..., 4:12]
-    m8n = u8[..., 12:14]
-    s = {
-        "kind": u8[..., 0].to(torch.int32),
-        "qp_y": qp_y,
-        "qp_cb": chroma_qp(qp_y, c0, tabs["qpc_tab"]),
-        "qp_cr": chroma_qp(qp_y, c1, tabs["qpc_tab"]),
-        "sid": sid,
-        "i16_mode": u8[..., 2],
-        "chroma_mode": u8[..., 3],
-        "modes4": torch.stack([m4n & 15, m4n >> 4], -1).reshape(F, n, 16),
-        "modes8": torch.stack([m8n & 15, m8n >> 4], -1).reshape(F, n, 4),
-        "luma_lv": i16[..., :256],
-        "luma_dc": i16[..., 256:272],
-        "chroma_dc": i16[..., 272:280],
-        "chroma_ac": i16[..., 280:408],
-    }
-    for k, g in zip(("avail_a", "avail_b", "avail_c", "avail_d"), nbs):
-        s[k] = (g == sid2).reshape(F, n)
-    return s
-
-
-def dbctl(u8):
-    """The per-MB deblock control (disable_deblocking_filter_idc,
-    FilterOffsetA, FilterOffsetB) as int32 [F, n] from the wire's per-MB
-    bytes u8 [F, n, 19]."""
-    dis, offa, offb = u8[..., 16:19].to(torch.int32).unbind(-1)
-    return dis.contiguous(), offa - 12, offb - 12
-
-
 def _pcm_batch_rows(batch, sps, pps, F, n, n_threads):
     """Host rows of a batch holding PCM MBs, which the packed wire does
     not carry: dense coefficient rows [F, n, 408] int16, per-MB bytes
@@ -434,8 +252,8 @@ def _pcm_batch_rows(batch, sps, pps, F, n, n_threads):
     [F, n, 2, 8, 8] uint8.  The tail is padded with the last picture."""
     from .native.entropy import decode_picture_islices
 
-    i16 = np.zeros((F, n, I16_STRIDE), np.int16)
-    u8 = np.zeros((F, n, U8_STRIDE), np.uint8)
+    i16 = np.zeros((F, n, wire.I16_STRIDE), np.int16)
+    u8 = np.zeros((F, n, wire.U8_STRIDE), np.uint8)
     pcm_y = np.zeros((F, n, 256), np.uint8)
     pcm_c = np.zeros((F, n, 2, 8, 8), np.uint8)
     for i, (slice_datas, headers) in enumerate(batch):
@@ -450,7 +268,7 @@ def _pcm_batch_rows(batch, sps, pps, F, n, n_threads):
         i16[i, :, 280:408] = out["chroma_ac"][:, :, :4, :].reshape(n, 128)
         m4, m8 = out["modes4"], out["modes8"]
         sid = out["slice_id"]
-        ctl = _dbctl_of(headers)[sid]
+        ctl = wire.dbctl_of(headers)[sid]
         u8[i] = np.concatenate([
             np.stack([kind, out["qp_y"], out["i16_mode"],
                       out["chroma_mode"]], 1),
@@ -498,7 +316,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     ``utils.obs.StageTimers``, or anything with its ``stage`` and
     ``count``) takes the call's host work in stages, none inside
     another: parse (NAL split and headers), alloc (the call's device
-    planes and staging blobs), those of ``BlobStaging.pack`` (wait,
+    planes and staging blobs), those of ``pack_batch`` (wait,
     prep, entropy, redecode, alloc, pad), pack (a PCM batch's rows),
     hold, ship, dispatch, harvest, wait (the last drain) and fallback
     (``utils.obs.STAGES``); and the counters frames, bins, wire_bytes,
@@ -555,7 +373,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
             whole = [torch.empty((len(batches) * F, *sh[1:]),
                                  dtype=torch.uint8, device=dev)
                      for sh in shapes]
-        staging = BlobStaging(F, npad, n, pin=cuda)
+        staging = wire.Staging(F, npad, n, START_CAPS, pin=cuda)
         cur = 0
 
     def out_of(b):
@@ -603,7 +421,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                                .crop(sps))
 
     for b, batch in enumerate(batches):
-        host = staging.pack(cur, batch, sps, pps, n_threads, tm)
+        host = pack_batch(staging, cur, batch, sps, pps, n_threads, tm)
         if host is None:
             # PCM samples ride their own host rows into the same device
             # path after densify (x264 never emits PCM)
@@ -633,9 +451,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
                     step.load(host)
                 else:
                     blob = host.to(dev, non_blocking=True) if cuda else host
-                if cuda:
-                    staging.ev[cur] = torch.cuda.Event()
-                    staging.ev[cur].record(torch.cuda.current_stream(dev))
+                staging.shipped(cur, dev)
             with tm.stage("dispatch"):
                 out = out_of(b)
                 r = (step(out) if graph else

@@ -33,6 +33,7 @@ from .kernels.transform import LS_KEYS, stage_a
 from .kernels.wavefront import intra_recon, recon_inputs
 from .syntax import stack_frames, syntax_tensors
 from .tables import decoder_tables
+from .wire import dbctl_of
 
 
 def picture_supported(sps, pps, h) -> bool:
@@ -100,17 +101,6 @@ def frames_from_stream(stream: bytes, n_threads: int = 0):
     return frames, sps
 
 
-def _dbctl_of(headers):
-    """Per-slice deblock control rows (disable_idc, alpha_off, beta_off)."""
-    return np.asarray([(1, 0, 0) if h.deblocking is not None
-                       and h.deblocking.disable_idc == 1 else
-                       (0, 0, 0) if h.deblocking is None else
-                       (h.deblocking.disable_idc,
-                        h.deblocking.alpha_c0_offset_div2 * 2,
-                        h.deblocking.beta_offset_div2 * 2)
-                       for h in headers], np.int32)
-
-
 @lru_cache(maxsize=8)
 def _cached_tables(device, ls4y, ls4cb, ls4cr, ls8y):
     return decoder_tables(device, *(np.frombuffer(b, np.int32).copy()
@@ -155,7 +145,7 @@ def deblock_pre_of(fs, slice_id, headers, pps, device):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)) \
             .to(device)[None]
 
-    ctl = _dbctl_of(headers)[slice_id]
+    ctl = dbctl_of(headers)[slice_id]
     with record_function("deblock_params"):
         return deblock_params(
             t(fs.kind), t(fs.qp_y), t(slice_id), t(ctl[:, 0]),

@@ -1,6 +1,7 @@
 """The batched intra entropy stage: ``native.entropy.decode_pack_batch``
 (every slice of every picture of a batch a native task, at most
-`n_threads` at once) as ``gop_pipeline.BlobStaging.pack`` drives it, on
+`n_threads` at once) as ``gop_pipeline.pack_batch`` drives it on a
+``wire.Staging``, on
 the CPU with the benchmark's tiny all-intra stream (16 one-slice IDR
 pictures of 20x12 MBs, ``avcbench/tests/configs/tiny-intra``).  The blob
 a batch ships is the same bytes at every `n_threads` and the same as
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 
 from dryv_tpu_torch import gop_pipeline as gp
+from dryv_tpu_torch import wire
 from dryv_tpu_torch.kernels.geometry import BLK, round_up
 from dryv_tpu_torch.native import entropy
 from dryv_tpu_torch.utils.obs import StageTimers
@@ -26,7 +28,7 @@ INTRA = (Path(__file__).resolve().parent.parent / "avcbench" / "tests"
 PICS, SPS, PPS = gp._parse_pictures(INTRA)
 N = SPS.pic_width_in_mbs * SPS.frame_height_in_mbs
 NPAD = round_up(N, BLK)
-START = (32, 256, 64)
+START = gp.START_CAPS
 
 
 class Quiet:
@@ -43,10 +45,10 @@ def _pack(batch, n_threads, caps=START, tm=None, sps=SPS, pps=PPS):
     """A fresh one-slot staging for `batch`, started at `caps`; returns
     it and its packed blob (a numpy copy, None for PCM)."""
     n = sps.pic_width_in_mbs * sps.frame_height_in_mbs
-    st = gp.BlobStaging(len(batch), round_up(n, BLK), n, slots=1)
+    st = wire.Staging(len(batch), round_up(n, BLK), n, START, slots=1)
     if caps != START:
-        st._grow(caps, Quiet())
-    blob = st.pack(0, batch, sps, pps, n_threads, tm or Quiet())
+        st.grow(caps, Quiet())
+    blob = gp.pack_batch(st, 0, batch, sps, pps, n_threads, tm or Quiet())
     return st, None if blob is None else blob.numpy().copy()
 
 
@@ -70,14 +72,14 @@ def test_blob_is_each_picture_packed_alone_at_the_final_caps(serial):
     st, blob = serial
     W, ecap, ovcap = st.caps
     assert st.caps == (256, 256, 256)
-    offs = gp._blob_layout(len(PICS), NPAD, N, W, ecap, ovcap)[0]
+    offs = wire.layout(len(PICS), NPAD, N, W, ecap, ovcap)[0]
     views = {name: np.ndarray(shape, dt, buffer=blob, offset=off)
              for name, (off, shape, dt) in offs.items()}
     for i, (slice_datas, headers) in enumerate(PICS):
-        alone = gp._alloc_blob(1, NPAD, N, W, ecap, ovcap)[1]
+        alone = wire.alloc(1, NPAD, N, W, ecap, ovcap)[1]
         cnt = np.zeros(NPAD, np.int32)
         entropy.decode_pack_picture_islices(
-            slice_datas, SPS, PPS, W, gp._dbctl_of(headers),
+            slice_datas, SPS, PPS, W, wire.dbctl_of(headers),
             alone["bmp"][0], alone["vals"][0], cnt, alone["u8"][0],
             alone["exc_idx"][0], alone["exc_delta"][0],
             alone["ovf_idx"][0], alone["ovf_rows"][0], n_threads=1)
@@ -152,10 +154,9 @@ def test_a_pcm_picture_returns_none():
     pics, sps, pps = _fixture_pictures("pcm")
     st, blob = _pack(pics * 3, 4, sps=sps, pps=pps)
     assert blob is None
-    b = st.bufs[0]
     res, _ = entropy.decode_pack_batch(
-        [(sd, gp._dbctl_of(h)) for sd, h in pics * 3], sps, pps, 32,
-        [tuple(b[key][i] for key in gp._WIRE_VIEWS) for i in range(3)])
+        [(sd, wire.dbctl_of(h)) for sd, h in pics * 3], sps, pps, 32,
+        [st.views(0, i) for i in range(3)])
     assert (res[:, 0] == -1).all()
 
 
@@ -168,16 +169,16 @@ def test_multi_slice_pictures_match_the_per_picture_entry():
     npad = round_up(n, BLK)
     batch = pics * 4
     for n_threads in (1, 4):
-        st = gp.BlobStaging(4, npad, n, slots=1)
-        st._grow((256, 1024, 256), Quiet())
+        st = wire.Staging(4, npad, n, START, slots=1)
+        st.grow((256, 1024, 256), Quiet())
         b = st.bufs[0]
-        ctl = gp._dbctl_of(pics[0][1])
+        ctl = wire.dbctl_of(pics[0][1])
         res, (_, peak) = entropy.decode_pack_batch(
             [(sd, ctl) for sd, _ in batch], sps, pps, 256,
-            [tuple(b[key][i] for key in gp._WIRE_VIEWS) for i in range(4)],
+            [st.views(0, i) for i in range(4)],
             n_threads=n_threads)
         assert peak <= n_threads
-        alone = gp._alloc_blob(1, npad, n, 256, 1024, 256)[1]
+        alone = wire.alloc(1, npad, n, 256, 1024, 256)[1]
         cnt = np.zeros(npad, np.int32)
         _, maxnz, nexc, novf = entropy.decode_pack_picture_islices(
             pics[0][0], sps, pps, 256, ctl, alone["bmp"][0],
@@ -208,16 +209,16 @@ def test_no_more_tasks_than_threads_run_at_once(serial, n_threads):
     `n_threads`, also when more threads are asked for than there are
     cores (three batches in a row); the bytes stay the same."""
     st1, blob1 = serial
-    st = gp.BlobStaging(len(PICS), NPAD, N, slots=1)
-    st._grow(st1.caps, Quiet())
+    st = wire.Staging(len(PICS), NPAD, N, START, slots=1)
+    st.grow(st1.caps, Quiet())
     b = st.bufs[0]
-    ctls = [gp._dbctl_of(h) for _, h in PICS]
+    ctls = [wire.dbctl_of(h) for _, h in PICS]
     for _ in range(3):
         res, (task_us, peak) = entropy.decode_pack_batch(
             [(sd, c) for (sd, _), c in zip(PICS, ctls)], SPS, PPS,
             st.caps[0],
-            [tuple(b[key][i] for key in gp._WIRE_VIEWS)
-             for i in range(len(PICS))], n_threads=n_threads)
+            [st.views(0, i) for i in range(len(PICS))],
+            n_threads=n_threads)
         assert 1 <= peak <= n_threads and task_us > 0
         assert (res[:, 3] > 0).all()
         assert np.array_equal(b["_blob"], blob1)
@@ -248,9 +249,8 @@ def test_counters_of_the_batched_decode(n_threads):
 
 
 def test_the_wire_views_are_checked():
-    st = gp.BlobStaging(1, NPAD, N, slots=1)
-    b = st.bufs[0]
-    views = [tuple(b[key][0] for key in gp._WIRE_VIEWS)]
+    st = wire.Staging(1, NPAD, N, START, slots=1)
+    views = [st.views(0, 0)]
     with pytest.raises(ValueError):
-        entropy.decode_pack_batch([(PICS[0][0], gp._dbctl_of(PICS[0][1]))],
+        entropy.decode_pack_batch([(PICS[0][0], wire.dbctl_of(PICS[0][1]))],
                                   SPS, PPS, 64, views)

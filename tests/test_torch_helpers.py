@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 from dryv_tpu_torch import gop_pipeline as tgp
+from dryv_tpu_torch import wire
 from dryv_tpu_torch.kernels import geometry as G
 
 
@@ -35,16 +36,18 @@ def test_geometry_tables():
 
 
 def test_blob_helpers():
+    """``wire.layout`` and ``wire.alloc`` without motion segments are the
+    batched JAX pipeline's ``_blob_layout`` and ``_alloc_blob``."""
     from dryv_tpu import gop_pipeline as jgp
 
-    assert tgp.I16_STRIDE == jgp.I16_STRIDE
-    assert tgp.U8_STRIDE == jgp.U8_STRIDE
-    assert [(n, d) for n, d, _ in tgp._BLOB_SPEC] == \
+    assert wire.I16_STRIDE == jgp.I16_STRIDE
+    assert wire.U8_STRIDE == jgp.U8_STRIDE
+    assert [(n, d) for n, d, _ in wire.SEGMENTS[:wire.COEFF]] == \
         [(n, d) for n, d, _ in jgp._BLOB_SPEC]
     for caps in ((16, 8192, 8160, 32, 256, 64), (4, 128, 12, 96, 512, 128),
                  (1, 128, 1, 256, 256, 64), (3, 256, 200, 64, 768, 192)):
-        assert tgp._blob_layout(*caps) == jgp._blob_layout(*caps)
-        blob, views = tgp._alloc_blob(*caps)
+        assert wire.layout(*caps) == jgp._blob_layout(*caps)
+        blob, views = wire.alloc(*caps)
         jblob, jviews = jgp._alloc_blob(*caps)
         np.testing.assert_array_equal(blob, jblob)
         assert views.keys() == jviews.keys()
@@ -52,7 +55,7 @@ def test_blob_helpers():
             assert views[k].dtype == jviews[k].dtype
             np.testing.assert_array_equal(views[k], jviews[k])
     for x, q in ((0, 64), (65, 64), (300, 256), (4096, 256), (33, 32)):
-        assert tgp._round_cap(x, q) == jgp._round_cap(x, q)
+        assert wire.round_cap(x, q) == jgp._round_cap(x, q)
 
 
 def test_syntax_keys_and_stack_frames():
@@ -102,7 +105,7 @@ def test_parse_and_scope(name):
         assert sd == jsd
         assert tgp._gop_supported(sps, pps, hs) == \
             jgp._gop_supported(jsps, jpps, jhs)
-    assert tgp._dbctl_of(pics[0][1]).tolist() == \
+    assert wire.dbctl_of(pics[0][1]).tolist() == \
         [list(r) for r in _jax_dbctl(pics[0][1])]
 
 
@@ -155,19 +158,29 @@ def test_decoder_tables():
 
 
 def test_ipb_wire_copies():
-    """The packed I/P/B wire format of the port equals the JAX path's."""
+    """The packed I/P/B wire format of the port equals the JAX path's:
+    ``wire.layout`` and ``wire.alloc`` at F = 1 with the motion segments
+    are its ``_layout`` and ``_alloc``, the coefficient segments' shapes
+    less the leading 1."""
     from dryv_tpu import device_ipb_packed as jip
-    from dryv_tpu_torch import device_ipb_packed as tip
 
-    assert tip._IPB_SPEC == jip._IPB_SPEC
-    for caps in ((8192, 8160, 130560, 32, 1024, 256),
-                 (128, 24, 384, 96, 2048, 512), (128, 1, 16, 256, 1024, 256)):
-        assert tip._shapes(*caps) == jip._shapes(*caps)
-        assert tip._layout(*caps) == jip._layout(*caps)
-        blob, views = tip._alloc(*caps)
-        jblob, jviews = jip._alloc(*caps)
+    assert [(n, d) for n, d, _ in wire.SEGMENTS] == \
+        [(n, d) for n, d, _ in jip._IPB_SPEC]
+    for npad, n, n4, W, ecap, ovcap in (
+            (8192, 8160, 130560, 32, 1024, 256),
+            (128, 24, 384, 96, 2048, 512), (128, 1, 16, 256, 1024, 256)):
+        offs, total = wire.layout(1, npad, n, W, ecap, ovcap, n4)
+        joffs, jtotal = jip._layout(npad, n, n4, W, ecap, ovcap)
+        assert total == jtotal and offs.keys() == joffs.keys()
+        for k, (off, shape, dt) in offs.items():
+            lead = 1 if list(offs).index(k) < wire.COEFF else 0
+            assert shape[:lead] == (1,) * lead
+            assert (off, shape[lead:], dt) == joffs[k], k
+        blob, views = wire.alloc(1, npad, n, W, ecap, ovcap, n4)
+        jblob, jviews = jip._alloc(npad, n, n4, W, ecap, ovcap)
         np.testing.assert_array_equal(blob, jblob)
         assert views.keys() == jviews.keys()
         for k in views:
             assert views[k].dtype == jviews[k].dtype
-            np.testing.assert_array_equal(views[k], jviews[k])
+            np.testing.assert_array_equal(
+                views[k].reshape(jviews[k].shape), jviews[k])

@@ -50,6 +50,7 @@ def test_reconstruct_frame(name):
     from dryv_tpu.native.entropy import decode_picture_islices
     from dryv_tpu.pipeline import reconstruct_frame_jax
     from dryv_tpu_torch.gop_pipeline import _parse_pictures
+    from dryv_tpu_torch.wire import dbctl_of
 
     stream, golden, _, _ = get_fixture(name)
     pics, sps, pps = _parse_pictures(stream)
@@ -63,7 +64,7 @@ def test_reconstruct_frame(name):
     if "dblk" in name:
         pre = tp.deblock_pre_of(fs, out["slice_id"], headers, pps, "cpu")
         jpre = deblock_precompute_intra(
-            fs.kind, fs.qp_y, out["slice_id"], tp._dbctl_of(headers).tolist(),
+            fs.kind, fs.qp_y, out["slice_id"], dbctl_of(headers).tolist(),
             fs.mb_w, fs.mb_h, pps.chroma_qp_index_offset,
             pps.second_chroma_qp_offset)
     got = tp.reconstruct_frame(fs, ls4, ls8, deblock_pre=pre, device="cpu")

@@ -1,6 +1,7 @@
 """The host stages and counters of the port's two decode entries
 (``device_ipb_packed.decode_annexb_device_packed`` and
-``gop_pipeline.decode_annexb_gop_pipelined`` with ``BlobStaging.pack``),
+``gop_pipeline.decode_annexb_gop_pipelined`` with ``pack_batch``, and
+the ``wire.Staging`` both use),
 on the CPU with the benchmark's tiny streams (``avcbench/tests/configs``):
 a recording timer that fails on a nested stage or a count outside every
 stage, each call the entries make from their own frames checked to run
@@ -32,9 +33,10 @@ LIVE = (CONFIGS / "tiny-live" / "live_slices4_s4.264").read_bytes()
 # call outside every stage: the stage context managers themselves, the
 # helpers that open their own stages, and the loop's enumerate
 ENTRY_CODES = {"decode_annexb_device_packed", "decode_annexb_gop_pipelined",
-               "pack", "_grow"}
-MAY_CALL_OUTSIDE = {"helper", "__enter__", "__exit__", "staged", "pack",
-                    "_grow", "drain", "to_host", "enumerate"}
+               "pack", "pack_batch", "grow", "wait"}
+ENTRY_FILES = ("device_ipb_packed.py", "gop_pipeline.py", "wire.py")
+MAY_CALL_OUTSIDE = {"helper", "__enter__", "__exit__", "staged",
+                    "pack_batch", "grow", "wait", "to_host", "enumerate"}
 
 
 class Recorder:
@@ -123,8 +125,7 @@ def traced_decode(decode, monkeypatch):
             return
         if (caller is not None and tm.open is None
                 and caller.f_code.co_name in ENTRY_CODES
-                and caller.f_code.co_filename.endswith(
-                    ("device_ipb_packed.py", "gop_pipeline.py"))):
+                and caller.f_code.co_filename.endswith(ENTRY_FILES)):
             outside.append(callee)
 
     sys.setprofile(profile)
@@ -274,18 +275,21 @@ def test_intra_counters(intra):
 
 
 def test_staging_started_large_enough_retries_nothing():
+    from dryv_tpu_torch import wire
     from dryv_tpu_torch.kernels.geometry import BLK, round_up
 
     pics, sps, pps = gop_pipeline._parse_pictures(INTRA)
     n = sps.pic_width_in_mbs * sps.frame_height_in_mbs
-    grown = gop_pipeline.BlobStaging(4, round_up(n, BLK), n, slots=1)
+    start = gop_pipeline.START_CAPS
+    grown = wire.Staging(4, round_up(n, BLK), n, start, slots=1)
     tm = Recorder()
-    first = grown.pack(0, pics[:4], sps, pps, 1, tm).clone()
+    first = gop_pipeline.pack_batch(grown, 0, pics[:4], sps, pps, 1,
+                                    tm).clone()
     assert tm.counters["retries"] >= 1 and grown.caps != (32, 256, 64)
-    big = gop_pipeline.BlobStaging(4, round_up(n, BLK), n, slots=1)
-    big._grow(grown.caps, Recorder())
+    big = wire.Staging(4, round_up(n, BLK), n, start, slots=1)
+    big.grow(grown.caps, Recorder())
     tm2 = Recorder()
-    again = big.pack(0, pics[:4], sps, pps, 1, tm2)
+    again = gop_pipeline.pack_batch(big, 0, pics[:4], sps, pps, 1, tm2)
     assert tm2.counters["retries"] == 0 and "redecode" not in tm2.names
     assert tm2.counters["frames"] == tm.counters["frames"] == 4
     assert tm2.counters["bins"] == tm.counters["bins"]
