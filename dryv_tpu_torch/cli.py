@@ -9,7 +9,8 @@ Usage: python -m dryv_tpu_torch <file.mp4> [-d] [-o OUT] [--frames N]
 --stats prints the decode's host stages (seconds and calls), its
 counters (frames, CABAC bins, CAVLC slice-data bits, wire bytes, staging
 retries, pictures of parallel batches, the native tasks' microseconds,
-the emulation-prevention bytes removed from the slices),
+the emulation-prevention bytes removed from the slices, the calls
+that started from a kept staging),
 bins/s, CAVLC bits/s and the batched entropy's parallelism as JSON.  --trace DIR records the decode
 under torch.profiler (host ops, and the card's kernels and copies where
 CUDA is present) and writes

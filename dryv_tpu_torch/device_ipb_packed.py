@@ -216,12 +216,13 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
     ``utils.obs.StageTimers``, or anything with its ``stage`` and
     ``count``) takes the call's host work in stages, none inside
     another: split, parse, entropy (CABAC) or cavlc, motion (derivation
-    and WP tables), alloc (the pinned blobs), wait (on a slot's copy,
-    and the last drain), pack, hold, ship, dispatch (enqueueing
-    ``PackedPictureDecoder``), dpb, harvest and fallback
-    (``utils.obs.STAGES``); and the counters frames, bins (CABAC),
-    cavlc_bits (CAVLC), wire_bytes, retries and epb_bytes
-    (``utils.obs.COUNTERS``).  With `graph`
+    and WP tables), alloc (the pinned blobs: taken from the keep at the
+    first picture, given back on return, ``wire.take``,
+    ``wire.give_back``), wait (on a slot's copy, and the last drain),
+    pack, hold, ship, dispatch (enqueueing ``PackedPictureDecoder``),
+    dpb, harvest and fallback (``utils.obs.STAGES``); and the counters
+    frames, bins (CABAC), cavlc_bits (CAVLC), wire_bytes, retries,
+    epb_bytes and staging_kept (``utils.obs.COUNTERS``).  With `graph`
     (the default) each picture replays its key's captured step
     (``STEPS``): ship copies the blob and the reference planes into the
     step's static inputs, dispatch replays it and clones its planes;
@@ -252,15 +253,17 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
         frames = []
         order = []
         epoch = -1
-        staging = None        # two pinned blobs, made at the first picture
+        staging = None        # two pinned blobs, taken at the first picture
         model = None
         npad = n = n4 = 0
         cur = 0
 
     def to_host():
-        with tm.stage("wait"):
-            if staging is not None:
+        if staging is not None:
+            with tm.stage("wait"):
                 staging.drain()
+            with tm.stage("alloc"):
+                wire.give_back(dev, staging)
         decode_annexb_device_packed.host_calls += 1
         with tm.stage("fallback"):
             return decode_annexb_native(stream, max_frames,
@@ -280,6 +283,7 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
             out, n, staging.caps[0], ctl, *staging.views(cur, 0),
             n_threads=n_threads, inter=True)
         assert maxnz >= 0   # PCM handled above
+        staging.note(cur, 0, maxnz, nexc, novf)
         return _needs(staging.caps, maxnz, nexc, novf, npad)
 
     for pic_nals in access_units:
@@ -375,8 +379,8 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
 
         if staging is None:
             with tm.stage("alloc"):
-                staging = wire.Staging(1, npad, n, START_CAPS, n4=n4,
-                                       pin=cuda)
+                staging = wire.take(dev, 1, npad, n, START_CAPS, tm,
+                                    n4=n4, pin=cuda)
         # ---- fill the wire blob: a slot is refilled only after the
         # device copy that read it two pictures ago has completed
         staging.wait(cur, tm)
@@ -476,10 +480,12 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                                        key=lambda t: t[0])]
         if max_frames:
             frames = frames[:max_frames]
-    # the staging blobs are freed on return: let their copies drain
-    with tm.stage("wait"):
-        if staging is not None:
+    # the staging goes back to the keep once its copies drained
+    if staging is not None:
+        with tm.stage("wait"):
             staging.drain()
+        with tm.stage("alloc"):
+            wire.give_back(dev, staging)
     if device_out or not frames:
         return frames
     with tm.stage("harvest"):

@@ -168,6 +168,9 @@ def pack_batch(st, k, batch, sps, pps, n_threads, tm):
                 _needs(st.caps, st.npad, todo, res)
             tm.count("retries", len(set(redo) - retried))
             retried.update(redo)
+            if not (pcm or redo):
+                for i, r in zip(todo, res):
+                    st.note(k, i, *r[:3])
         if pcm:
             return None
         if not redo:
@@ -316,11 +319,12 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     ``utils.obs.StageTimers``, or anything with its ``stage`` and
     ``count``) takes the call's host work in stages, none inside
     another: parse (NAL split and headers), alloc (the call's device
-    planes and staging blobs), those of ``pack_batch`` (wait,
+    planes, and its staging taken from and given back to the keep:
+    ``wire.take``, ``wire.give_back``), those of ``pack_batch`` (wait,
     prep, entropy, redecode, alloc, pad), pack (a PCM batch's rows),
     hold, ship, dispatch, harvest, wait (the last drain) and fallback
     (``utils.obs.STAGES``); and the counters frames, bins, wire_bytes,
-    retries, par_pictures, entropy_task_us and epb_bytes
+    retries, par_pictures, entropy_task_us, epb_bytes and staging_kept
     (``utils.obs.COUNTERS``)."""
     tm = timers if timers is not None else StageTimers()
     with tm.stage("parse"):
@@ -373,7 +377,7 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
             whole = [torch.empty((len(batches) * F, *sh[1:]),
                                  dtype=torch.uint8, device=dev)
                      for sh in shapes]
-        staging = wire.Staging(F, npad, n, START_CAPS, pin=cuda)
+        staging = wire.take(dev, F, npad, n, START_CAPS, tm, pin=cuda)
         cur = 0
 
     def out_of(b):
@@ -465,9 +469,11 @@ def decode_annexb_gop_pipelined(stream: bytes, gop: int = 16,
     if pending is not None:
         with tm.stage("harvest"):
             harvest(pending)
-    # the staging blobs are freed on return: let their copies drain
+    # the staging goes back to the keep once its copies drained
     with tm.stage("wait"):
         staging.drain()
+    with tm.stage("alloc"):
+        wire.give_back(dev, staging)
     return results
 
 

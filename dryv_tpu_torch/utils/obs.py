@@ -37,8 +37,9 @@ from collections import defaultdict
 #   prep      a batched picture's deblock controls
 #   pack      the wire blob (I/P/B), a PCM batch's host rows (batched)
 #   pad       a batch's tail padded with its last picture
-#   alloc     the call's pinned staging blobs and device planes, and the
-#             blobs of a cap growth
+#   alloc     the call's device planes, its staging taken from and given
+#             back to the keep (``wire.take``, a new one's pinned blobs),
+#             and the blobs of a cap growth
 #   wait      the host blocked on a card event: slot reuse, a growth's
 #             drain, the call's last drain
 #   hold      entering and leaving ``StepCache.hold``
@@ -60,9 +61,11 @@ STAGES = ("split", "parse", "entropy", "cavlc", "redecode", "motion", "prep",
 # more than one task ran at once; entropy_task_us: the summed wall time
 # of the batched native calls' tasks (re-decodes too), in microseconds;
 # epb_bytes: the emulation-prevention bytes (00 00 03 -> 00 00) removed
-# from the slice NALs' payloads as their RBSPs were made
+# from the slice NALs' payloads as their RBSPs were made; staging_kept:
+# calls whose staging came from the keep (``wire.take``): an earlier
+# call's of the same key, at the caps it grew to
 COUNTERS = ("frames", "bins", "cavlc_bits", "wire_bytes", "retries",
-            "par_pictures", "entropy_task_us", "epb_bytes")
+            "par_pictures", "entropy_task_us", "epb_bytes", "staging_kept")
 RANGE = "dryv."
 
 

@@ -18,8 +18,12 @@ The caps (W, ecap, ovcap) are static, part of each captured step's key.
 ``Staging`` holds a call's blobs; each entry starts it at its own caps
 and grows it by its own rule (``gop_pipeline._needs``,
 ``device_ipb_packed._needs``), on the pieces here (``round_cap``,
-``dense``).  On the card ``split``, ``dense_rows`` (kernel B1 and the
-fixes), ``wire_syntax`` and ``dbctl`` read the blob back.
+``dense``).  A call takes its staging from the process's keep
+(``take``) and gives it back on return (``give_back``), so the next call
+of the same geometry, batch size and entry starts at the caps this one
+grew to, unless it needed no more than the start caps (``fits``).  On
+the card ``split``, ``dense_rows`` (kernel B1 and the fixes),
+``wire_syntax`` and ``dbctl`` read the blob back.
 
 The layout stands for both of the JAX package's helper sets, which
 import jax: ``dryv_tpu/gop_pipeline.py``'s ``_BLOB_SPEC``,
@@ -29,6 +33,9 @@ import jax: ``dryv_tpu/gop_pipeline.py``'s ``_BLOB_SPEC``,
 ``layout`` and ``alloc`` equal to both.
 """
 from __future__ import annotations
+
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -110,6 +117,20 @@ def dense(maxnz, novf, W, npad):
     return (maxnz > W) & (W < W_MAX) & (novf * 2 * I16_STRIDE > npad * 32)
 
 
+def fits(caps, npad, cnt, maxnz, nexc, novf):
+    """Whether a picture that packed at caps no smaller than `caps` (W,
+    ecap, ovcap), with `cnt` its MBs' value counts and (maxnz, nexc,
+    novf) its counts there, packs at `caps` with no growth by either
+    entry's rule: at the smaller W its overflow MBs are those that
+    overflowed here and those that held more than W values here, its
+    exceptions (counted in MBs that fit) are at most those here, and it
+    is not dense (``dense``)."""
+    W, ecap, ovcap = caps
+    novf = novf + int(np.count_nonzero(cnt > W))
+    return nexc <= ecap and novf <= ovcap and \
+        not dense(maxnz, novf, W, npad)
+
+
 class Staging:
     """A call's host staging of the wire: `slots` blobs (pinned when
     `pin`) for batches of F pictures, made at `caps` (W, ecap, ovcap),
@@ -117,11 +138,16 @@ class Staging:
     blob (``_blob``) in ``bufs``.  A slot is refilled only after the
     device copy that read it completed: ``shipped`` records that copy's
     event, ``wait`` waits for it.  ``caps`` is the caps now; they only
-    grow (``grow``)."""
+    grow (``grow``) from ``start``, the caps it was made at.  ``light``
+    holds while every picture of the call (``note``) would have packed
+    at ``start`` with no growth.  A slot holds what earlier packs left
+    (a kept staging's, earlier calls'): a pack writes every byte the
+    device decode reads, and ``clear`` readies the rest."""
 
     def __init__(self, F, npad, n, caps, n4=0, pin=False, slots=2):
         self.F, self.npad, self.n, self.n4, self.pin = F, npad, n, n4, pin
-        self.caps = tuple(caps)
+        self.start = self.caps = tuple(caps)
+        self.light = True
         self.ev = [None] * slots
         self.bufs = [self._alloc() for _ in range(slots)]
 
@@ -151,6 +177,14 @@ class Staging:
         b["exc_delta"][pics] = 0
         b["ovf_idx"][pics] = self.npad
 
+    def note(self, k, i, maxnz, nexc, novf):
+        """Picture i of slot k packed at the caps now with the counts
+        (maxnz, nexc, novf): ``light`` ends unless it fits ``start``."""
+        if self.light and self.caps != self.start:
+            self.light = fits(self.start, self.npad,
+                              self.bufs[k]["cnt"][i, :self.n], maxnz, nexc,
+                              novf)
+
     def shipped(self, k, dev):
         """Record the copy of slot k just enqueued (pinned slots only)."""
         if self.pin:
@@ -176,6 +210,7 @@ class Staging:
             self.drain()
         with tm.stage("alloc"):
             self.caps = tuple(caps)
+            self.light = False
             for k, old in enumerate(self.bufs):
                 new = self._alloc()
                 for name in old:
@@ -183,6 +218,65 @@ class Staging:
                         new[name][tuple(map(slice, old[name].shape))] = \
                             old[name]
                 self.bufs[k] = new
+
+
+# the most keys a keep holds idle stagings of: a process decodes a few
+# geometries and batch sizes, each staging up to ~300 MB of pinned memory
+KEEP_KEYS = 4
+
+
+class StagingKeep:
+    """Idle stagings kept between calls, so that a call starts at the
+    caps the last call of its key grew to and makes no blobs: at most
+    one a key and ``KEEP_KEYS`` keys, a new key past that releasing the
+    least recently given back.  A key is (device, F, npad, n, n4, pin);
+    n4 keeps the two entries' stagings apart (0 on the batched entry).
+    A staging taken is out of the keep until it is given back, so two
+    callers of one key at once never share one: the second makes its
+    own.  The caps kept are the high-water mark of the calls that needed
+    more than the start caps: a call whose every picture fit them
+    (``Staging.light``) leaves the key empty, so the next call starts
+    anew at them, as it would with no keep."""
+
+    def __init__(self):
+        self.idle: OrderedDict = OrderedDict()
+        self.lock = threading.Lock()
+
+    def take(self, device, F, npad, n, start, tm, n4=0, pin=False):
+        """The idle staging of the key, with its slots, events and grown
+        caps (counted as ``staging_kept`` in `tm`), or else a new one at
+        the start caps."""
+        with self.lock:
+            st = self.idle.pop((device, F, npad, n, n4, pin), None)
+        if st is None:
+            return Staging(F, npad, n, start, n4=n4, pin=pin)
+        tm.count("staging_kept", 1)
+        st.light = True
+        return st
+
+    def give_back(self, device, st):
+        """Keep `st`, drained, for the next call of its key on `device`
+        (in place of an idle one a concurrent caller gave back first),
+        unless its call fit the start caps it grew past."""
+        key = (device, st.F, st.npad, st.n, st.n4, st.pin)
+        with self.lock:
+            self.idle.pop(key, None)
+            if st.light and st.caps != st.start:
+                return
+            self.idle[key] = st
+            while len(self.idle) > KEEP_KEYS:
+                self.idle.popitem(last=False)
+
+    def release(self):
+        """Drop every kept staging (its host memory goes back to torch's
+        allocators)."""
+        with self.lock:
+            self.idle.clear()
+
+
+# the process's keep, which both entries take their stagings from
+KEEP = StagingKeep()
+take, give_back, release = KEEP.take, KEEP.give_back, KEEP.release
 
 
 def dbctl_of(headers):

@@ -31,6 +31,16 @@ NPAD = round_up(N, BLK)
 START = gp.START_CAPS
 
 
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): the growth and re-decodes pinned here are a
+    first call's, which a kept staging skips."""
+    wire.release()
+    yield
+    wire.release()
+
+
 class Quiet:
     """The ``timers=`` protocol, keeping nothing."""
 

@@ -25,10 +25,22 @@ from dryv_tpu_torch.device_ipb_packed import (PackedPictureDecoder,
                                               decode_annexb_device_packed)
 from dryv_tpu_torch.native import entropy
 from dryv_tpu_torch.utils.obs import StageTimers
+from dryv_tpu_torch import wire
 
 LIVE = Path(__file__).resolve().parent.parent / "avcbench" / "tests" / \
     "configs" / "tiny-live"
 STREAMS = sorted(p.name for p in LIVE.glob("*.264"))
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): a staging kept from an earlier test would start
+    a decode at the caps that test grew to, not at the entry's start
+    caps, and so change its steps' keys."""
+    wire.release()
+    yield
+    wire.release()
 
 
 def _stream(name):

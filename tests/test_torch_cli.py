@@ -26,8 +26,20 @@ from dryv_tpu_torch.device_ipb_packed import (PackedPictureDecoder,
                                               decode_annexb_device_packed)
 from dryv_tpu_torch.pipeline import decode_annexb_fast
 from dryv_tpu_torch.video import BACKENDS, SeekPosition, TorchVideo
+from dryv_tpu_torch import wire
 
 from test_torch_import import _ipb_stream
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): a staging kept from an earlier test would start
+    a decode at the caps that test grew to, not at the entry's start
+    caps, and so change its steps' keys."""
+    wire.release()
+    yield
+    wire.release()
 
 
 @pytest.fixture(scope="module")

@@ -15,10 +15,22 @@ from dryv_tpu.encoder.slices import encode_sequence_annexb
 from dryv_tpu.testing.oracle import decode_annexb
 from dryv_tpu_torch.device_ipb_packed import (PackedPictureDecoder,
                                               decode_annexb_device_packed)
+from dryv_tpu_torch import wire
 
 from test_device_ipb import _conformance_streams, _sources
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): a staging kept from an earlier test would start
+    a decode at the caps that test grew to, not at the entry's start
+    caps, and so change its steps' keys."""
+    wire.release()
+    yield
+    wire.release()
 
 
 @pytest.fixture

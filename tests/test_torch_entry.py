@@ -18,6 +18,18 @@ from dryv_tpu_torch.encoder.intra_encoder import IntraEncoder
 from dryv_tpu_torch.kernels.geometry import LS4_FLAT, LS8_FLAT
 from dryv_tpu_torch.native.full import decode_annexb_native
 from dryv_tpu_torch.parallel import _tiny_stream
+from dryv_tpu_torch import wire
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): a staging kept from an earlier test would start
+    a decode at the caps that test grew to, not at the entry's start
+    caps, and so change its steps' keys."""
+    wire.release()
+    yield
+    wire.release()
 
 
 def _scaling_lists():

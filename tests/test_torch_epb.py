@@ -25,6 +25,7 @@ from dryv_tpu_torch import decoder as tdecoder
 from dryv_tpu_torch import device_ipb_packed, gop_pipeline
 from dryv_tpu_torch.avc import NalUnitType, split_annexb, to_annexb
 from dryv_tpu_torch.utils.obs import StageTimers
+from dryv_tpu_torch import wire
 
 ROOT = Path(__file__).resolve().parent.parent
 POOLS = ROOT / "avcbench" / "configs"
@@ -50,6 +51,17 @@ HAND = {
     "prefix_split_31": b"\x88" * 31 + b"\x00\x00\x03\x01" + b"\x11" * 8,
     "prefix_end_29": b"\x88" * 29 + b"\x00\x00\x03\x01" + b"\x11" * 8,
 }
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): a staging kept from an earlier test would start
+    a decode at the caps that test grew to, not at the entry's start
+    caps, and so change its steps' keys."""
+    wire.release()
+    yield
+    wire.release()
 
 
 def _random_payloads(seed, n=2000):

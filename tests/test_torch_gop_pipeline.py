@@ -12,8 +12,20 @@ import torch
 from dryv_tpu.testing.oracle import decode_annexb
 from dryv_tpu.testing.x264 import encode_x264
 from dryv_tpu_torch.gop_pipeline import decode_annexb_gop_pipelined
+from dryv_tpu_torch import wire
 
 from test_gop_pipeline import _frames
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): a staging kept from an earlier test would start
+    a decode at the caps that test grew to, not at the entry's start
+    caps, and so change its steps' keys."""
+    wire.release()
+    yield
+    wire.release()
 
 
 @lru_cache(maxsize=None)

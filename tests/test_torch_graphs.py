@@ -23,8 +23,20 @@ from dryv_tpu.encoder.slices import (encode_frame_annexb,
                                      encode_sequence_annexb)
 from dryv_tpu.testing.oracle import decode_annexb
 from dryv_tpu_torch import device_ipb_packed, gop_pipeline, graphs, pipeline
+from dryv_tpu_torch import wire
 
 from test_device_ipb import _sources
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): a staging kept from an earlier test would start
+    a decode at the caps that test grew to, not at the entry's start
+    caps, and so change its steps' keys."""
+    wire.release()
+    yield
+    wire.release()
 
 
 def _planes(frames):

@@ -7,6 +7,18 @@ import pytest
 
 from dryv_tpu.testing.fixtures import get_fixture
 from dryv_tpu_torch import pipeline as tp
+from dryv_tpu_torch import wire
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): a staging kept from an earlier test would start
+    a decode at the caps that test grew to, not at the entry's start
+    caps, and so change its steps' keys."""
+    wire.release()
+    yield
+    wire.release()
 
 
 def _assert_frames(got, ref, golden):

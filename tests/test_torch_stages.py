@@ -19,7 +19,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from dryv_tpu_torch import device_ipb_packed, gop_pipeline, graphs
+from dryv_tpu_torch import device_ipb_packed, gop_pipeline, graphs, wire
 from dryv_tpu_torch.native import entropy
 from dryv_tpu_torch.utils import obs
 
@@ -37,6 +37,16 @@ ENTRY_CODES = {"decode_annexb_device_packed", "decode_annexb_gop_pipelined",
 ENTRY_FILES = ("device_ipb_packed.py", "gop_pipeline.py", "wire.py")
 MAY_CALL_OUTSIDE = {"helper", "__enter__", "__exit__", "staged",
                     "pack_batch", "grow", "wait", "to_host", "enumerate"}
+
+
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): the retries and redecode stages pinned here are
+    a first call's, which a kept staging skips."""
+    wire.release()
+    yield
+    wire.release()
 
 
 class Recorder:
@@ -138,6 +148,7 @@ def traced_decode(decode, monkeypatch):
 
 @pytest.fixture(scope="module")
 def ipb():
+    wire.release()
     with pytest.MonkeyPatch.context() as mp:
         return traced_decode(
             lambda tm: device_ipb_packed.decode_annexb_device_packed(
@@ -149,6 +160,7 @@ def ipb():
 def live():
     """A CAVLC stream (IDR then P, 4 slices a picture) on the I/P/B
     path."""
+    wire.release()
     with pytest.MonkeyPatch.context() as mp:
         return traced_decode(
             lambda tm: device_ipb_packed.decode_annexb_device_packed(
@@ -159,7 +171,9 @@ def live():
 @pytest.fixture(scope="module")
 def intra():
     """Two calls on the stream of 16 IDR pictures twice over (two
-    batches of 16): the staging lives for a call, so each grows it."""
+    batches of 16), from an emptied keep: the first grows its staging,
+    the second takes it back from the keep at the caps it grew to."""
+    wire.release()
     runs = []
     for _ in range(2):
         with pytest.MonkeyPatch.context() as mp:
@@ -172,12 +186,12 @@ def intra():
 
 def test_stage_list_is_documented():
     """``utils.obs.STAGES`` is the list its comment documents, in order,
-    and ``COUNTERS`` the eight counters, each named in their comment."""
+    and ``COUNTERS`` the nine counters, each named in their comment."""
     text = Path(obs.__file__).read_text()
     assert tuple(re.findall(r"^#   (\w+) ", text, re.M)) == obs.STAGES
     assert obs.COUNTERS == ("frames", "bins", "cavlc_bits", "wire_bytes",
                             "retries", "par_pictures", "entropy_task_us",
-                            "epb_bytes")
+                            "epb_bytes", "staging_kept")
     for name in obs.COUNTERS:
         assert re.search(rf"[#;] {name}:", text), name
 
@@ -263,13 +277,20 @@ def test_intra_counters(intra):
         assert tm.counters["bins"] == sum(pics) > 0
         # each batch's whole blob, its padded tail included
         assert tm.counters["wire_bytes"] == sum(loads) and len(loads) == 2
-        retried = len(decodes) - len(pics)
-        assert retried >= 1 and "redecode" in tm.names
-        assert 1 <= tm.counters["retries"] <= retried
-    # the staging lives for a call: the second grows as the first did
-    # (entropy_task_us, a wall time, is the one counter that differs)
+    # the first call grows its new staging and decodes pictures again
+    tm, decodes = intra[0][0], intra[0][4]
+    retried = len(decodes) - len(_pictures(decodes))
+    assert retried >= 1 and "redecode" in tm.names
+    assert 1 <= tm.counters["retries"] <= retried
+    assert tm.counters["staging_kept"] == 0
+    # the second takes it back from the keep, grown: each picture once
+    tm, decodes = intra[1][0], intra[1][4]
+    assert len(decodes) == 32 and "redecode" not in tm.names
+    assert tm.counters["retries"] == 0 and tm.counters["staging_kept"] == 1
+    # the rest are equal (entropy_task_us is a wall time)
     first, second = ({k: v for k, v in run[0].counters.items()
-                      if k != "entropy_task_us"} for run in intra)
+                      if k not in ("entropy_task_us", "retries",
+                                   "staging_kept")} for run in intra)
     assert min(run[0].counters["entropy_task_us"] for run in intra) > 0
     assert first == second
 

@@ -22,6 +22,16 @@ CONFIGS = ROOT / "avcbench" / "tests" / "configs"
 PACKAGE = ROOT / "dryv_tpu_torch"
 
 
+@pytest.fixture(autouse=True)
+def empty_staging_keep():
+    """Each test starts from an emptied staging keep and leaves none
+    (``wire.release``): the caps, retries and wire bytes pinned here are
+    a first call's growth, which a kept staging skips."""
+    wire.release()
+    yield
+    wire.release()
+
+
 class Quiet:
     """The ``timers=`` protocol, keeping nothing."""
 
